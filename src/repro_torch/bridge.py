@@ -1,0 +1,60 @@
+"""Load a reference parameter tree into a port module.
+
+The reference keeps parameters as nested dicts and lists of arrays whose
+key paths (``down.1.blocks.0.attn.wq.w``) are the port modules'
+``state_dict`` keys.  Two leaves differ in form:
+
+* conv kernels are HWIO ``(kh, kw, in, out)`` in the reference and OIHW
+  in the port: every 4-D array is transposed by ``(3, 2, 0, 1)``;
+* a pre-quantized weight is a ``QTensor`` (an object with ``q`` and
+  ``scale``); the matching ``Linear`` is switched to its quantized form
+  first, and the two arrays load as ``<path>.q`` / ``<path>.scale``.
+
+Leaves may be numpy arrays or anything ``numpy.asarray`` accepts.  The
+load is strict: a missing or unexpected key raises.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from repro_torch.models import layers as L
+
+
+def _flatten(tree: Any, prefix: str, out: Dict[str, Any]) -> None:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _flatten(v, f'{prefix}{k}.', out)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            _flatten(v, f'{prefix}{i}.', out)
+    else:                                  # an array or a QTensor
+        out[prefix[:-1]] = tree
+
+
+def load_jax_params(module: nn.Module, tree: Any) -> nn.Module:
+    """Copy the reference tree ``tree`` into ``module`` (in place, on the
+    module's device); returns the module."""
+    flat: Dict[str, Any] = {}
+    _flatten(tree, '', flat)
+    state: Dict[str, torch.Tensor] = {}
+    for key, leaf in flat.items():
+        if hasattr(leaf, 'q') and hasattr(leaf, 'scale'):
+            owner = module.get_submodule(key.rsplit('.', 1)[0])
+            if not isinstance(owner, L.Linear):
+                raise ValueError(f'{key}: a QTensor leaf must be a Linear '
+                                 'weight')
+            if not isinstance(owner.w, L.QWeight):
+                owner.quantize_()
+            state[f'{key}.q'] = torch.from_numpy(np.array(leaf.q))
+            state[f'{key}.scale'] = torch.from_numpy(np.array(leaf.scale))
+            continue
+        arr = np.array(leaf)
+        if arr.ndim == 4:
+            arr = arr.transpose(3, 2, 0, 1)
+        state[key] = torch.from_numpy(np.ascontiguousarray(arr))
+    module.load_state_dict(state, strict=True)
+    return module

@@ -1,0 +1,98 @@
+"""Sparsity-aware transposed convolution (paper §IV-C), port of
+``repro/core/sparse_dataflow.py``.
+
+A stride-s transposed convolution equals s^2 dense stride-1 convolutions
+over the un-expanded input, one per output phase, whose outputs
+interleave; each phase uses only the kernel taps that land on real
+input pixels, so the zero-MACs of the zero-inserted input vanish.
+
+Semantics are those of ``jax.lax.conv_transpose`` with SAME padding and
+no kernel flip (correlation), which is NOT ``nn.ConvTranspose2d``:
+``out[o] = sum_d k[d] * x[(o + d - pad_a) / s]`` where the division is
+exact and in range.
+
+Layouts: activations NHWC; kernels OIHW ``(Cout, Cin, kh, kw)``, i.e.
+the reference's HWIO kernel transposed by ``(3, 2, 0, 1)``.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+def conv_nhwc(x: torch.Tensor, w: torch.Tensor, pad_h: Tuple[int, int],
+              pad_w: Tuple[int, int], stride: int = 1) -> torch.Tensor:
+    """Correlation of NHWC ``x`` with an OIHW kernel under explicit
+    (lo, hi) padding per spatial dim; negative padding crops.  The NHWC
+    tensor is handed to cuDNN as a channels-last NCHW view, so no
+    layout copy is made."""
+    xc = x.permute(0, 3, 1, 2)
+    if pad_h[0] == pad_h[1] >= 0 and pad_w[0] == pad_w[1] >= 0:
+        y = F.conv2d(xc, w, stride=stride, padding=(pad_h[0], pad_w[0]))
+    else:
+        xc = F.pad(xc, (pad_w[0], pad_w[1], pad_h[0], pad_h[1]))
+        y = F.conv2d(xc, w, stride=stride)
+    return y.permute(0, 2, 3, 1)
+
+
+def _pad_a(k: int, s: int) -> int:
+    """Leading padding ``jax.lax.conv_transpose(SAME)`` applies to the
+    zero-inserted input (``sparse_dataflow.py:73-76`` of the reference);
+    the total is ``k + s - 2``."""
+    return k - 1 if s > k - 1 else -(-(k + s - 2) // 2)
+
+
+def conv_transpose_dense(x: torch.Tensor, kernel: torch.Tensor,
+                         stride: int) -> torch.Tensor:
+    """Baseline dataflow: zero-insert ``stride - 1`` zeros between input
+    pixels, then one dense correlation (SAME: output ``H*s x W*s``)."""
+    N, H, W, C = x.shape
+    _, _, kh, kw = kernel.shape
+    s = stride
+    xd = x.new_zeros(N, (H - 1) * s + 1, (W - 1) * s + 1, C)
+    xd[:, ::s, ::s, :] = x
+    ph, pw = _pad_a(kh, s), _pad_a(kw, s)
+    return conv_nhwc(xd, kernel, (ph, kh + s - 2 - ph), (pw, kw + s - 2 - pw))
+
+
+def _phase_grid(k: int, s: int, phase: int, pad_a: int):
+    """Kernel taps feeding output phase ``phase`` along one dim, ordered
+    by the input offset each reads, and the offset range (lo, hi); None
+    when no tap does."""
+    taps = [d for d in range(k) if (phase + d - pad_a) % s == 0]
+    if not taps:
+        return None
+    offs = [(phase + d - pad_a) // s for d in taps]
+    lo, hi = min(offs), max(offs)
+    # offsets step by one as d steps by s, so every offset in [lo, hi]
+    # has exactly one tap
+    return [taps[offs.index(o)] for o in range(lo, hi + 1)], lo, hi
+
+
+def conv_transpose_sparse(x: torch.Tensor, kernel: torch.Tensor,
+                          stride: int) -> torch.Tensor:
+    """Zero-skipping transposed conv via sub-pixel decomposition.
+
+    x (N, H, W, Cin), kernel (Cout, Cin, kh, kw) -> (N, H*s, W*s, Cout).
+    """
+    if stride == 1:
+        return conv_transpose_dense(x, kernel, 1)
+    N, H, W, _ = x.shape
+    cout, _, kh, kw = kernel.shape
+    s = stride
+    pt, pl = _pad_a(kh, s), _pad_a(kw, s)
+    out = x.new_zeros(N, H * s, W * s, cout)
+    for py in range(s):
+        for px in range(s):
+            gy, gx = _phase_grid(kh, s, py, pt), _phase_grid(kw, s, px, pl)
+            if gy is None or gx is None:
+                continue        # no tap reaches this phase: it stays zero
+            (rows, oy0, oy1), (cols, ox0, ox1) = gy, gx
+            grid = kernel[:, :, rows][:, :, :, cols]
+            # out[i] = sum_d x[i + off0 + d] * grid[d]: pad lo by -off0
+            # and hi by off1 (negative padding crops)
+            out[:, py::s, px::s, :] = conv_nhwc(x, grid, (-oy0, oy1),
+                                                (-ox0, ox1))
+    return out

@@ -1,0 +1,146 @@
+"""End-to-end diffusion pipeline, port of ``repro/diffusion/pipeline.py``:
+noise -> DDIM denoising with the UNet -> VAE decode for latent models.
+
+The pipeline carries a default ``PrecisionPolicy`` and every entry point
+takes a per-call ``policy=`` override, so one pipeline serves requests at
+different precisions.  Weights live on ``device`` (the GPU unless the
+caller asks for the CPU).  A request's initial noise is drawn from a CPU
+``torch.Generator`` seeded with its seed and then moved to the device, so
+the image a seed gives does not depend on the device that serves it.
+"""
+from __future__ import annotations
+
+import copy
+import dataclasses
+from typing import Optional, Sequence, Union
+
+import torch
+
+from repro_torch.core.precision import PrecisionPolicy, resolve
+from repro_torch.diffusion import samplers
+from repro_torch.diffusion.schedule import Schedule, linear_schedule
+from repro_torch.models import layers as L
+from repro_torch.models.autoencoder import VAEConfig, VAEDecoder
+from repro_torch.models.unet import UNet, UNetConfig
+
+_PROJECTIONS = ('wq', 'wk', 'wv', 'wo', 'xq', 'xk', 'xv', 'xo')
+
+
+def resolve_device(device: Union[str, torch.device]) -> torch.device:
+    """The device asked for; raises when it is a GPU this machine lacks."""
+    dev = torch.device(device)
+    if dev.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError('CUDA is not available; pass device="cpu" to run '
+                           'the plain PyTorch path on the CPU')
+    return dev
+
+
+def initial_noise(seed: int, shape: Sequence[int],
+                  device: Union[str, torch.device]) -> torch.Tensor:
+    """Standard-normal noise from a CPU generator seeded with ``seed``,
+    moved to ``device``."""
+    gen = torch.Generator().manual_seed(int(seed))
+    return torch.randn(tuple(shape), generator=gen).to(device)
+
+
+@dataclasses.dataclass
+class DiffusionPipeline:
+    unet_cfg: UNetConfig
+    unet: UNet
+    sched: Schedule
+    vae_cfg: Optional[VAEConfig] = None
+    vae: Optional[VAEDecoder] = None
+    policy: PrecisionPolicy = PrecisionPolicy.fp32()
+
+    @classmethod
+    def init(cls, seed: int, unet_cfg: UNetConfig,
+             vae_cfg: Optional[VAEConfig] = None, *,
+             timesteps: Optional[int] = None,
+             policy: Union[PrecisionPolicy, str, None] = None,
+             device: Union[str, torch.device] = 'cuda') -> 'DiffusionPipeline':
+        """Freshly initialised weights drawn on the CPU from ``seed`` (so
+        they are the same on every device), then moved to ``device``."""
+        dev = resolve_device(device)
+        gen = torch.Generator().manual_seed(int(seed))
+        unet = UNet(unet_cfg)
+        L.init_params(unet, gen)
+        vae = None
+        if vae_cfg is not None:
+            vae = VAEDecoder(vae_cfg)
+            L.init_params(vae, gen)
+            vae = vae.to(dev).eval()
+        sched = linear_schedule(timesteps or unet_cfg.timesteps, device=dev)
+        return cls(unet_cfg, unet.to(dev).eval(), sched, vae_cfg, vae,
+                   resolve(policy))
+
+    @property
+    def device(self) -> torch.device:
+        return self.sched.betas.device
+
+    def to(self, device) -> 'DiffusionPipeline':
+        """A copy of this pipeline with every weight on ``device``."""
+        dev = resolve_device(device)
+        s = self.sched
+        return dataclasses.replace(
+            self, unet=copy.deepcopy(self.unet).to(dev),
+            vae=None if self.vae is None else copy.deepcopy(self.vae).to(dev),
+            sched=Schedule(s.betas.to(dev), s.alphas.to(dev),
+                           s.alpha_bars.to(dev)))
+
+    def prequantize(self) -> 'DiffusionPipeline':
+        """Serve-time calibration: a copy whose attention projection
+        weights are per-output-channel QTensors (the weights the dynamic
+        w8a8 path quantizes on the fly, with the same scale rule), with the
+        policy's calibration pinned to 'prequant'."""
+        unet = copy.deepcopy(self.unet)
+        for name, m in unet.named_modules():
+            if isinstance(m, L.Linear) and name.rsplit('.', 1)[-1] in \
+                    _PROJECTIONS:
+                m.quantize_()
+        pol = self.policy if self.policy.quantized else PrecisionPolicy.w8a8()
+        return dataclasses.replace(
+            self, unet=unet,
+            policy=dataclasses.replace(pol, calibration='prequant'))
+
+    def _eps_fn(self, context=None, guidance: float = 0.0, policy=None):
+        """Noise-prediction closure at a given precision, with
+        classifier-free guidance when ``guidance > 0`` and a context is
+        given: ``e_unc + guidance * (e_cond - e_unc)``."""
+        pol = resolve(policy) if policy is not None else self.policy
+
+        def eps(x, t):
+            e = self.unet(x, t, context, pol)
+            if guidance > 0.0 and context is not None:
+                e_unc = self.unet(x, t, None, pol)
+                e = e_unc + guidance * (e - e_unc)
+            return e
+        return eps
+
+    def sample_shape(self, batch: int):
+        c = self.unet_cfg
+        return (batch, c.img_size, c.img_size, c.in_ch)
+
+    @torch.no_grad()
+    def denoise_step(self, x: torch.Tensor, t, t_prev, context=None,
+                     guidance: float = 0.0, policy=None) -> torch.Tensor:
+        """One mixed-timestep DDIM step; ``t`` / ``t_prev`` are per-sample
+        (B,) vectors or scalars."""
+        tt = torch.as_tensor(t, dtype=torch.long, device=x.device).expand(
+            x.shape[0])
+        eps = self._eps_fn(context, guidance, policy)(x, tt)
+        return samplers.ddim_step(self.sched, eps, x, t, t_prev)
+
+    @torch.no_grad()
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        """Latents to images for latent models (identity otherwise)."""
+        return z if self.vae is None else self.vae(z)
+
+    @torch.no_grad()
+    def generate(self, seed: int, batch: int = 1, steps: int = 50,
+                 context=None, guidance: float = 0.0,
+                 policy=None) -> torch.Tensor:
+        """Serve one batch of requests with DDIM; returns images (or
+        latents when there is no VAE), NHWC."""
+        x = initial_noise(seed, self.sample_shape(batch), self.device)
+        eps = self._eps_fn(context, guidance, policy)
+        return self.decode(samplers.ddim_sample(self.sched, eps, x, steps))

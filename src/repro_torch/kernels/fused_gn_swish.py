@@ -1,0 +1,74 @@
+"""Fused GroupNorm + swish (DiffLight C5): the CUDA kernel of
+``csrc/fused_gn_swish.cu`` and its plain PyTorch version.
+
+The kernel replaces ``repro/kernels/fused_gn_swish.py::
+fused_gn_swish_kernel``; the plain version repeats the reference's
+arithmetic (``repro/kernels/ref.py::gn_swish_ref``) and is what the CPU
+runs.  ``kernels/ops.py`` picks one by the tensor's device.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+#: launches of the CUDA kernel since the last reset (``ops.reset_launches``)
+launches = 0
+
+_fn = None
+
+
+def gn_swish_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                   groups: int, eps: float = 1e-5) -> torch.Tensor:
+    """x (N, H, W, C) NHWC, scale/bias (C,); C % groups == 0.  Population
+    variance (mean of squared deviations), as ``jnp.var``."""
+    N, H, W, C = x.shape
+    xf = x.float().reshape(N, H, W, groups, C // groups)
+    mu = xf.mean(dim=(1, 2, 4), keepdim=True)
+    var = (xf - mu).square().mean(dim=(1, 2, 4), keepdim=True)
+    y = ((xf - mu) * torch.rsqrt(var + eps)).reshape(N, H, W, C)
+    y = y * scale + bias
+    return (y * torch.sigmoid(y)).to(x.dtype)
+
+
+def _kernel_fn():
+    global _fn
+    if _fn is None:
+        from repro_torch.kernels.build import load
+        fn = load('fused_gn_swish').fused_gn_swish_f32
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+            ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def fused_gn_swish_kernel(x: torch.Tensor, scale: torch.Tensor,
+                          bias: torch.Tensor, groups: int,
+                          eps: float = 1e-5) -> torch.Tensor:
+    """Launch the CUDA kernel on the current stream.  x (N, H, W, C)
+    contiguous float32 on a CUDA device, scale/bias (C,) float32 on the
+    same device, C % groups == 0."""
+    global launches
+    if not x.is_cuda:
+        raise ValueError('fused_gn_swish_kernel needs a CUDA tensor')
+    if x.dim() != 4:
+        raise ValueError(f'x must be (N, H, W, C), got {tuple(x.shape)}')
+    N, H, W, C = x.shape
+    if C % groups:
+        raise ValueError(f'{C} channels do not split into {groups} groups')
+    for name, t, shape in (('x', x, (N, H, W, C)), ('scale', scale, (C,)),
+                           ('bias', bias, (C,))):
+        if t.dtype != torch.float32 or t.device != x.device:
+            raise ValueError(f'{name} must be float32 on {x.device}')
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f'{name} must be contiguous {shape}, got '
+                             f'{tuple(t.shape)}')
+    out = torch.empty_like(x)
+    err = _kernel_fn()(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                       out.data_ptr(), N, H * W, C, groups, eps,
+                       torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f'fused_gn_swish launch failed: CUDA error {err}')
+    launches += 1
+    return out

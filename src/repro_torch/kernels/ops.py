@@ -1,0 +1,70 @@
+"""Public wrappers around the kernels, port of ``repro/kernels/ops.py``.
+
+They do what the reference wrappers do around the Pallas kernels
+(activation quantization, weight quantization unless pre-quantized, the
+GroupNorm group fallback) and dispatch by the tensor's device: a CUDA
+tensor always launches the hand-written kernel, a CPU tensor runs the
+plain PyTorch version, and any other device raises.  There is no switch
+and no fallback from one to the other.
+"""
+from __future__ import annotations
+
+from typing import Dict, Union
+
+import torch
+
+from repro_torch.core.quantization import (QTensor, quantize,
+                                           quantize_per_channel)
+from repro_torch.kernels import fused_gn_swish as _gn
+from repro_torch.kernels import w8a8_matmul as _mm
+
+_KERNEL_MODULES = {'fused_gn_swish': _gn, 'w8a8_matmul': _mm}
+
+
+def launch_counts() -> Dict[str, int]:
+    """CUDA-kernel launches per kernel since the last reset."""
+    return {name: mod.launches for name, mod in _KERNEL_MODULES.items()}
+
+
+def reset_launches() -> None:
+    for mod in _KERNEL_MODULES.values():
+        mod.launches = 0
+
+
+def _on_cuda(t: torch.Tensor, op: str) -> bool:
+    if t.device.type == 'cuda':
+        return True
+    if t.device.type == 'cpu':
+        return False
+    raise ValueError(f'{op}: no kernel for device {t.device}')
+
+
+def w8a8_matmul(x: torch.Tensor,
+                w: Union[torch.Tensor, QTensor]) -> torch.Tensor:
+    """x (..., K) float, w (K, N) float or pre-quantized QTensor ->
+    (..., N) float32.  Activations quantize per row (dynamic), weights per
+    output channel unless already a QTensor (serve-time prequant)."""
+    lead = x.shape[:-1]
+    K = x.shape[-1]
+    xq = quantize(x.reshape(-1, K), axis=(1,))
+    wq = w if isinstance(w, QTensor) else quantize_per_channel(w)
+    N = wq.q.shape[-1]
+    ws = wq.scale.reshape(1, N)
+    if _on_cuda(x, 'w8a8_matmul'):
+        out = _mm.w8a8_matmul_kernel(xq.q, xq.scale, wq.q.contiguous(),
+                                     ws.contiguous())
+    else:
+        out = _mm.w8a8_matmul_plain(xq.q, xq.scale, wq.q, ws)
+    return out.reshape(*lead, N)
+
+
+def fused_gn_swish(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                   *, groups: int = 32) -> torch.Tensor:
+    """GroupNorm (largest ``g <= groups`` dividing C) then swish, NHWC."""
+    C = x.shape[-1]
+    g = min(groups, C)
+    while C % g:
+        g -= 1
+    if _on_cuda(x, 'fused_gn_swish'):
+        return _gn.fused_gn_swish_kernel(x.contiguous(), scale, bias, g)
+    return _gn.gn_swish_plain(x, scale, bias, g)

@@ -1,0 +1,180 @@
+"""Foundational layers, port of ``repro/models/layers.py``.
+
+Functions on tensors: ``linear`` per precision policy, ``conv2d``,
+``groupnorm``, ``swish`` and ``conv_transpose2d``.  Layouts follow the
+reference at these functions: NHWC activations and ``(in, out)`` linear
+weights.  Conv kernels are OIHW ``(out, in, kh, kw)``, the reference's
+HWIO kernel transposed, so cuDNN reads them without a copy.
+
+The small modules at the end (``Linear``, ``Conv``, ``GroupNorm``) only
+hold parameters, under the names of the reference's param dicts (``w``,
+``b``, ``scale``, ``bias``), so a model's ``state_dict`` keys are the
+reference pytree's key paths.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Union
+
+import torch
+import torch.nn as nn
+
+from repro_torch.core.precision import PrecisionPolicy, resolve
+from repro_torch.core.quantization import QTensor, quantize_per_channel
+from repro_torch.core.sparse_dataflow import (conv_nhwc,
+                                              conv_transpose_dense,
+                                              conv_transpose_sparse)
+
+
+def linear(x: torch.Tensor, w: Union[torch.Tensor, QTensor],
+           b: Optional[torch.Tensor] = None,
+           policy: Union[PrecisionPolicy, str, None] = None) -> torch.Tensor:
+    """y = x @ w + b under the precision policy: fp32, or W8A8 (DiffLight
+    C1) when the policy is quantized or ``w`` is a pre-quantized QTensor."""
+    pol = resolve(policy)
+    if pol.quantized or isinstance(w, QTensor):
+        if pol.noisy:
+            raise NotImplementedError(
+                'w8a8+noise needs a threefry-compatible noise generator, '
+                'which a later slice of the port adds')
+        from repro_torch.kernels import ops
+        y = ops.w8a8_matmul(x, w)
+    else:
+        y = x @ w
+    if b is not None:
+        y = y + b
+    return y
+
+
+def _same_pads(size: int, k: int, s: int):
+    """(lo, hi) padding of XLA's SAME for one spatial dim."""
+    out = -(-size // s)
+    total = max((out - 1) * s + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
+           stride: int = 1) -> torch.Tensor:
+    """SAME-padded convolution: x (N, H, W, Cin), w (Cout, Cin, kh, kw)."""
+    _, H, W, _ = x.shape
+    _, _, kh, kw = w.shape
+    y = conv_nhwc(x, w, _same_pads(H, kh, stride), _same_pads(W, kw, stride),
+                  stride)
+    if b is not None:
+        y = y + b
+    return y
+
+
+def conv_transpose2d(x: torch.Tensor, w: torch.Tensor,
+                     b: Optional[torch.Tensor] = None, stride: int = 2, *,
+                     sparse_dataflow: bool = True) -> torch.Tensor:
+    """Transposed conv with ``jax.lax.conv_transpose`` semantics; the
+    sparse dataflow (paper §IV-C) skips the inserted zeros."""
+    f = conv_transpose_sparse if sparse_dataflow else conv_transpose_dense
+    y = f(x, w, stride)
+    if b is not None:
+        y = y + b
+    return y
+
+
+def groupnorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm over NHWC with the largest ``g <= groups`` dividing C and
+    the population variance (``jnp.var``; ``torch.var`` would be
+    unbiased)."""
+    N, H, W, C = x.shape
+    g = min(groups, C)
+    while C % g:
+        g -= 1
+    xf = x.float().reshape(N, H, W, g, C // g)
+    mu = xf.mean(dim=(1, 2, 4), keepdim=True)
+    var = (xf - mu).square().mean(dim=(1, 2, 4), keepdim=True)
+    y = ((xf - mu) * torch.rsqrt(var + eps)).reshape(N, H, W, C)
+    return (y * scale + bias).to(x.dtype)
+
+
+def swish(x: torch.Tensor) -> torch.Tensor:
+    """f(x) = x * sigmoid(x), paper Eq. 5."""
+    return x * torch.sigmoid(x)
+
+
+# ---------------------------------------------------------------------------
+# parameter holders
+# ---------------------------------------------------------------------------
+
+def _empty(shape, device, dtype=torch.float32):
+    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
+                        requires_grad=False)
+
+
+class QWeight(nn.Module):
+    """A pre-quantized weight: int8 ``q`` and its float32 ``scale``, the
+    ``QTensor`` leaf of the reference's param tree."""
+
+    def __init__(self, qt: QTensor):
+        super().__init__()
+        self.register_buffer('q', qt.q)
+        self.register_buffer('scale', qt.scale)
+
+    def qtensor(self) -> QTensor:
+        return QTensor(self.q, self.scale)
+
+
+class Linear(nn.Module):
+    def __init__(self, d_in: int, d_out: int, bias: bool = True, device=None):
+        super().__init__()
+        self.w = _empty((d_in, d_out), device)
+        self.b = _empty((d_out,), device) if bias else None
+
+    @property
+    def weight(self) -> Union[torch.Tensor, QTensor]:
+        return self.w.qtensor() if isinstance(self.w, QWeight) else self.w
+
+    def quantize_(self) -> None:
+        """Replace the float weight by its per-output-channel QTensor."""
+        qt = quantize_per_channel(self.w.detach())
+        del self.w
+        self.w = QWeight(qt)
+
+    def forward(self, x, policy=None):
+        return linear(x, self.weight, self.b, policy)
+
+
+class Conv(nn.Module):
+    def __init__(self, kh: int, kw: int, c_in: int, c_out: int,
+                 bias: bool = True, device=None):
+        super().__init__()
+        self.w = _empty((c_out, c_in, kh, kw), device)
+        self.b = _empty((c_out,), device) if bias else None
+
+    def forward(self, x, stride: int = 1):
+        return conv2d(x, self.w, self.b, stride)
+
+
+class GroupNorm(nn.Module):
+    def __init__(self, channels: int, device=None):
+        super().__init__()
+        self.scale = _empty((channels,), device)
+        self.bias = _empty((channels,), device)
+
+    def forward(self, x, groups: int):
+        return groupnorm(x, self.scale, self.bias, groups)
+
+
+@torch.no_grad()
+def init_params(module: nn.Module, generator: torch.Generator) -> None:
+    """The reference's initialisation, drawn from ``generator``: fan-in
+    uniform weights, zero biases, unit GroupNorm scales.  Parameters are
+    visited in registration order, so a seed fixes every value."""
+    for m in module.modules():
+        if isinstance(m, GroupNorm):
+            m.scale.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, (Linear, Conv)):
+            w = m.w
+            fan_in = w.shape[0] if isinstance(m, Linear) else \
+                w.shape[1] * w.shape[2] * w.shape[3]
+            bound = 1.0 / math.sqrt(max(fan_in, 1))
+            w.uniform_(-bound, bound, generator=generator)
+            if m.b is not None:
+                m.b.zero_()

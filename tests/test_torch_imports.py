@@ -1,0 +1,68 @@
+"""Import hygiene of the port: ``repro_torch``, ``chip_smoke.py`` and the
+port's profiling script never import ``jax`` or anything of the JAX
+package ``repro``, and
+``chip_smoke.py`` refuses to run where it has no GPU or no repository."""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / 'src' / 'repro_torch'
+SOURCES = sorted(str(p.relative_to(ROOT)) for p in PORT.rglob('*.py')) + [
+    'chip_smoke.py', 'scripts/torch_profile_step.py']
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize('source', SOURCES)
+def test_source_never_imports_jax_or_the_reference(source):
+    for mod in _imported_modules(ROOT / source):
+        top = mod.split('.')[0]
+        assert top not in ('jax', 'jaxlib', 'repro'), f'{source} imports {mod}'
+
+
+def test_every_module_imports_with_jax_and_repro_blocked():
+    modules = sorted(
+        'repro_torch.' + '.'.join(p.relative_to(PORT).with_suffix('').parts)
+        for p in PORT.rglob('*.py'))
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        f"sys.path.insert(0, {str(ROOT / 'src')!r})\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m.removesuffix('.__init__'))\n"
+        "assert 'jax' not in {k.split('.')[0] for k, v in sys.modules.items()"
+        " if v is not None}\n"
+        "print('ok', len(sys.modules))\n")
+    out = subprocess.run([sys.executable, '-c', code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith('ok')
+
+
+@pytest.mark.parametrize('where', ['checkout', 'alone'])
+def test_chip_smoke_fails_without_gpu_or_repository(tmp_path, where):
+    """With no GPU visible the script must exit non-zero with no result
+    line; copied alone into an empty directory it must do the same."""
+    script, env = ROOT / 'chip_smoke.py', dict(os.environ)
+    if where == 'alone':
+        script = Path(shutil.copy(script, tmp_path / 'chip_smoke.py'))
+    else:
+        env['CUDA_VISIBLE_DEVICES'] = ''
+    out = subprocess.run([sys.executable, str(script)], capture_output=True,
+                         text=True, timeout=120, cwd=script.parent, env=env)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
