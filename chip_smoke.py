@@ -7,31 +7,49 @@ Phases, each printing its own lines:
 
 1. device: require CUDA, turn TF32 off for matmuls and cuDNN, print the
    card's name and power limit as ``nvidia-smi`` reports them;
-2. build: compile both CUDA kernels from ``src/repro_torch/csrc`` (one
-   ``nvcc`` each, in parallel) and print the seconds and ptxas's report;
+2. build: compile the three CUDA kernels from ``src/repro_torch/csrc``
+   (one ``nvcc`` each, in parallel) and print the seconds and ptxas's
+   report;
 3. kernels: find every shape the Stable Diffusion v1.4 UNet hands each
    kernel at batch = the engine's slot count (one w8a8 forward with and
    one without context), then at each shape hold the kernel against its
    plain PyTorch version (w8a8 exactly; GroupNorm+swish within
    ``GN_ATOL``) and time kernel, plain version and PyTorch yardstick
-   (``time_ms``), beside the card's bound for the same work;
+   (``time_ms``), beside the card's bound for the same work; likewise
+   the flash-attention kernel at the InternLM2-1.8B prefill shape and
+   the reference kernel test's shapes (``FLASH_SHAPES``), and the W8A8
+   kernel at the LM's projection shapes;
 4. small width: serve a guided fp32, an unguided fp32 and a w8a8 request
    of a tiny SD-shaped model through the engine on the card and on the
    CPU from the same seeds, and compare the images;
 5. full width: serve 8 requests (fp32 and w8a8, guided at 7.5 and not,
    10 DDIM steps) of SD v1.4 + the 512x512 VAE with random weights from
    seed 0 through the engine on 4 slots, check every image, and check
-   with the kernels' launch counters that the main path ran through both
-   kernels, as many times as its UNet evaluations require.
+   with the kernels' launch counters that the diffusion path ran through
+   its two kernels, as many times as its UNet evaluations require;
+6. LM small width: the smoke InternLM2 (head dim 16, GQA rep 2) from one
+   seed on the card and on the CPU, a prefill and 8 decode steps at fp32
+   and at w8a8, logits compared step by step;
+7. LM full width: InternLM2-1.8B with random weights from seed 0 on the
+   card.  First the check: the prefill's last-token logits (flash
+   kernel) against ``lm_apply``'s at the last position (``gqa_core``) on
+   the same 4 x 1000 prompt tokens, with 24 flash launches per prefill
+   and none per decode step.  Then the LM path: ``serve_lm`` (batch 4,
+   a 1000-token prompt, 32 new tokens, float32) at fp32 and at w8a8,
+   with the launch counters checked (24 flash launches per prefill, 120
+   W8A8 launches per w8a8 forward), tokens in the vocabulary, and the
+   prefill seconds, decode tokens/s and peak memory printed.
 
-Before the last line it prints one JSON object ``{"kernels": [...]}``;
-per kernel, ``ms`` / ``plain_ms`` / ``library_ms`` / ``bound_ms`` are the
-times of one UNet evaluation's worth of that kernel's calls at batch 4
-(the per-shape median times of phase 3, weighted by launches per
-evaluation) and ``launches`` is the count from phase 5.  The last line is
-``{"ok": true, "device": {...}}``.  Any failed check raises, and the run
-then exits non-zero with no result; so does a run without CUDA or without
-the repository beside this file.
+Before the last line it prints one JSON object ``{"kernels": [...]}``.
+For ``fused_gn_swish`` and ``w8a8_matmul``, ``ms`` / ``plain_ms`` /
+``library_ms`` / ``bound_ms`` are the times of one UNet evaluation's
+worth of that kernel's calls at batch 4 (the per-shape median times of
+phase 3, weighted by launches per evaluation); for ``flash_attention``
+they are one prefill's worth (24 launches at the path shape).
+``launches`` is each kernel's count over the runs of phases 5 and 7.
+The last line is ``{"ok": true, "device": {...}}``.  Any failed check
+raises, and the run then exits non-zero with no result; so does a run
+without CUDA or without the repository beside this file.
 """
 from __future__ import annotations
 
@@ -59,6 +77,46 @@ GN_ATOL = 1e-5
 # one LSB of an activation
 FP32_ATOL = 1e-4
 W8A8_ATOL = 1e-3
+# flash attention, float32 out: the reference kernel test's tolerance
+# (tiles of 64 keys against the plain version's blocks of 128);
+# bf16 out: both round a float32 result, so one bf16 ulp of each element
+# (2^-7 |ref|) plus that float32 difference
+FLASH_ATOL = 2e-5
+# LM, small width, card against CPU: fp32 as for the diffusion model; under
+# w8a8 a ~1e-7 difference can move an int8 rounding at a tie, and the
+# moved activation changes the per-row scales of every later product, so
+# the gap cascades (on the CPU, flash against gqa_core in 24 such layers
+# at d_model 64 moved logits by 4.5e-3; this model has 2)
+LM_SMALL_FP32_ATOL = 1e-4
+LM_SMALL_W8A8_ATOL = 1e-2
+# LM, full width, prefill (flash kernel) against lm_apply (gqa_core) on
+# the card.  fp32: attention summed in another order moves each attention
+# output by ~1e-7 relative, which 24 layers carry to ~1e-5 on logits of
+# order 1 (the same comparison on the CPU: 1.3e-6 at d_model 512 with 24
+# layers, 3.2e-6 at d_model 2048 with 4).  w8a8: the cascade above; on the
+# CPU the same comparison measured 1.1% (d_model 512, 24 layers, 500
+# tokens) and 1.8% (d_model 2048, 4 layers) of the largest logit, so the
+# bound is relative to that logit
+LM_FULL_FP32_ATOL = 1e-3
+LM_FULL_W8A8_RTOL = 0.1
+
+LM_ARCH = 'internlm2-1.8b'
+LM_BATCH, LM_PROMPT, LM_TOKENS = 4, 1000, 32
+SMALL_LM_STEPS = 8
+# (BH, S, T, d, causal, q dtype, k/v dtype): the InternLM2-1.8B prefill
+# (4 x 16 heads, 1000 tokens, not a multiple of the 64-row tile) in the
+# path's float32, all-bf16, and float32 q over a bf16 cache; then the
+# reference kernel test's shapes at B x H = 2 x 3
+FLASH_SHAPES = [
+    (64, 1000, 1000, 128, True, 'float32', 'float32'),
+    (64, 1000, 1000, 128, True, 'bfloat16', 'bfloat16'),
+    (64, 1000, 1000, 128, True, 'float32', 'bfloat16'),
+    (6, 128, 128, 64, False, 'float32', 'float32'),
+    (6, 128, 128, 64, True, 'float32', 'float32'),
+    (6, 256, 256, 32, True, 'float32', 'float32'),
+    (6, 128, 384, 64, False, 'float32', 'float32'),
+    (6, 100, 100, 64, True, 'float32', 'float32'),
+]
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12           # dense int8 tensor-core peak
@@ -68,6 +126,8 @@ TPU_KERNELS = {
                        'src/repro/kernels/fused_gn_swish.py:31'),
     'w8a8_matmul': ('src/repro_torch/csrc/w8a8_matmul.cu',
                     'src/repro/kernels/w8a8_matmul.py:52'),
+    'flash_attention': ('src/repro_torch/csrc/flash_attention.cu',
+                        'src/repro/kernels/flash_attention.py:75'),
 }
 
 
@@ -123,12 +183,45 @@ def record_shapes(ops, fn):
     return seen
 
 
+def w8a8_row(torch, gen, M: int, K: int, N: int):
+    """The W8A8 kernel at (M, K) x (K, N) on random operands: held
+    bit-exact against its plain version, then kernel, plain and
+    ``torch._int_mm`` timed beside the bound.  Returns (row, max abs
+    err)."""
+    from repro_torch.core.quantization import quantize, quantize_per_channel
+    from repro_torch.kernels import w8a8_matmul as mmk
+    xm = torch.randn((M, K), device='cuda', generator=gen)
+    wm = torch.randn((K, N), device='cuda', generator=gen)
+    xq, wq = quantize(xm, axis=(1,)), quantize_per_channel(wm)
+    ws = wq.scale.reshape(1, N).contiguous()
+    out = mmk.w8a8_matmul_kernel(xq.q, xq.scale, wq.q, ws)
+    ref = mmk.w8a8_matmul_plain(xq.q, xq.scale, wq.q, ws)
+    err = (out - ref).abs().max().item()
+    check(torch.equal(out, ref), f'w8a8_matmul {(M, K, N)}: not bit-exact, '
+          f'max abs err {err}')
+    row = {
+        'ms': time_ms(torch, lambda: mmk.w8a8_matmul_kernel(
+            xq.q, xq.scale, wq.q, ws)),
+        'plain_ms': time_ms(torch, lambda: mmk.w8a8_matmul_plain(
+            xq.q, xq.scale, wq.q, ws)),
+    }
+    try:       # yardstick only: the port never calls it
+        row['library_ms'] = time_ms(torch, lambda: torch._int_mm(xq.q, wq.q))
+    except RuntimeError as e:
+        print(f'[kernels] torch._int_mm {(M, K, N)}: {e}')
+        row['library_ms'] = None
+    nbytes = M * K + K * N + 4 * M + 4 * N + 4 * M * N
+    b_bytes = nbytes / HBM_BYTES_PER_S
+    b_ops = 2 * M * N * K / INT8_OPS_PER_S
+    row['bound_ms'] = max(b_bytes, b_ops) * 1e3
+    row['bound_by'] = 'bytes' if b_bytes >= b_ops else 'operations'
+    return row, err
+
+
 def phase_kernels(torch, ops, pipe, context):
     """Phase 3: every path shape, kernel vs plain, with times."""
     import torch.nn.functional as F
-    from repro_torch.core.quantization import quantize, quantize_per_channel
     from repro_torch.kernels import fused_gn_swish as gnk
-    from repro_torch.kernels import w8a8_matmul as mmk
     cfg = pipe.unet_cfg
     x = torch.randn((SLOTS, cfg.img_size, cfg.img_size, cfg.in_ch),
                     device='cuda')
@@ -169,34 +262,11 @@ def phase_kernels(torch, ops, pipe, context):
                 # ~10 float operations per element: two sums, normalise,
                 # affine, exp, add, divide
                 b_ops = 10 * N * H * W * C / F32_OPS_PER_S
+                row['bound_ms'] = max(b_bytes, b_ops) * 1e3
+                row['bound_by'] = ('bytes' if b_bytes >= b_ops
+                                   else 'operations')
             else:
-                M, K, Nn = shape
-                xm = torch.randn((M, K), device='cuda', generator=gen)
-                wm = torch.randn((K, Nn), device='cuda', generator=gen)
-                xq, wq = quantize(xm, axis=(1,)), quantize_per_channel(wm)
-                ws = wq.scale.reshape(1, Nn).contiguous()
-                out = mmk.w8a8_matmul_kernel(xq.q, xq.scale, wq.q, ws)
-                ref = mmk.w8a8_matmul_plain(xq.q, xq.scale, wq.q, ws)
-                err = (out - ref).abs().max().item()
-                check(torch.equal(out, ref), f'w8a8_matmul {shape}: not '
-                      f'bit-exact, max abs err {err}')
-                row = {
-                    'ms': time_ms(torch, lambda: mmk.w8a8_matmul_kernel(
-                        xq.q, xq.scale, wq.q, ws)),
-                    'plain_ms': time_ms(torch, lambda: mmk.w8a8_matmul_plain(
-                        xq.q, xq.scale, wq.q, ws)),
-                }
-                try:       # yardstick only: the port never calls it
-                    row['library_ms'] = time_ms(
-                        torch, lambda: torch._int_mm(xq.q, wq.q))
-                except RuntimeError as e:
-                    print(f'[kernels] torch._int_mm {shape}: {e}')
-                    row['library_ms'] = None
-                nbytes = M * K + K * Nn + 4 * M + 4 * Nn + 4 * M * Nn
-                b_bytes = nbytes / HBM_BYTES_PER_S
-                b_ops = 2 * M * Nn * K / INT8_OPS_PER_S
-            row['bound_ms'] = max(b_bytes, b_ops) * 1e3
-            row['bound_by'] = 'bytes' if b_bytes >= b_ops else 'operations'
+                row, err = w8a8_row(torch, gen, *shape)
             bound_by.add(row['bound_by'])
             errs.append(err)
             print('[kernels] shape ' + json.dumps(
@@ -215,6 +285,102 @@ def phase_kernels(torch, ops, pipe, context):
         print(f'[kernels] {name}: per UNet evaluation at batch {SLOTS}: '
               + json.dumps(summary[name]))
     return summary, per_eval
+
+
+def flash_ops(BH: int, S: int, T: int, d: int, causal: bool) -> int:
+    """Float operations of attention on these shapes: 2 d per score and 2 d
+    per probability-value product, over the (q, k) pairs the mask keeps
+    (k <= q under ``causal``)."""
+    pairs = sum(min(i + 1, T) for i in range(S)) if causal else S * T
+    return 4 * BH * d * pairs
+
+
+def phase_flash(torch, n_layers: int):
+    """Phase 3, flash attention: kernel vs plain at ``FLASH_SHAPES``, with
+    times; returns the per-prefill summary (``n_layers`` launches at the
+    path shape, the first entry)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fak
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    rows = []
+    for BH, S, T, d, causal, qt, kvt in FLASH_SHAPES:
+        q = torch.randn((BH, S, d), device='cuda', generator=gen)
+        k = torch.randn((BH, T, d), device='cuda', generator=gen)
+        v = torch.randn((BH, T, d), device='cuda', generator=gen)
+        q = q.to(getattr(torch, qt))
+        k, v = k.to(getattr(torch, kvt)), v.to(getattr(torch, kvt))
+        out = fak.flash_attention_kernel(q, k, v, causal=causal)
+        ref = fak.flash_attention_plain(q, k, v, causal=causal)
+        diff = (out.float() - ref.float()).abs()
+        err = diff.max().item()
+        what = f'flash_attention {(BH, S, T, d)} causal={causal} {qt}/{kvt}'
+        if q.dtype == torch.float32:
+            check(err <= FLASH_ATOL, f'{what}: max abs err {err} > '
+                  f'{FLASH_ATOL}')
+        else:
+            over = (diff - 2.0 ** -7 * ref.float().abs()).max().item()
+            check(over <= FLASH_ATOL, f'{what}: {over} beyond one bf16 ulp')
+        row = {
+            'ms': time_ms(torch, lambda: fak.flash_attention_kernel(
+                q, k, v, causal=causal)),
+            'plain_ms': time_ms(torch, lambda: fak.flash_attention_plain(
+                q, k, v, causal=causal)),
+            # yardstick only: the port never calls it; it takes one dtype
+            'library_ms': time_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal)) if qt == kvt else None,
+        }
+        b_ops = flash_ops(BH, S, T, d, causal) / F32_OPS_PER_S
+        b_bytes = (2 * q.numel() * q.element_size()
+                   + 2 * k.numel() * k.element_size()) / HBM_BYTES_PER_S
+        row['bound_ms'] = max(b_bytes, b_ops) * 1e3
+        row['bound_by'] = 'bytes' if b_bytes >= b_ops else 'operations'
+        row['max_abs_err'] = err
+        rows.append(row)
+        print('[kernels] shape ' + json.dumps(
+            {'kernel': 'flash_attention', 'shape': [BH, S, T, d],
+             'causal': causal, 'dtypes': [qt, kvt], 'max_abs_err': err,
+             'kernel_ms': row['ms'], 'plain_ms': row['plain_ms'],
+             'library_ms': row['library_ms'], 'bound_ms': row['bound_ms'],
+             'bound_by': row['bound_by']}))
+    path = rows[0]
+    summary = {k: n_layers * path[k]
+               for k in ('ms', 'plain_ms', 'bound_ms', 'library_ms')}
+    summary['bound_by'] = path['bound_by']
+    summary['max_abs_err'] = max(r['max_abs_err'] for r, sh in
+                                 zip(rows, FLASH_SHAPES) if sh[5:] ==
+                                 ('float32', 'float32'))
+    print(f'[kernels] flash_attention: per prefill ({n_layers} launches at '
+          f'{FLASH_SHAPES[0][:4]}): ' + json.dumps(summary))
+    return summary
+
+
+def phase_w8a8_lm(torch, cfg):
+    """Phase 3, the W8A8 kernel at the LM's projection shapes: per layer
+    wq (d x H hd), wo (H hd x d), up and gate (d x d_ff), down (d_ff x
+    d); at the prefill (M = batch x prompt) and a decode step (M =
+    batch), with per-forward totals."""
+    d, dq, dff = cfg.d_model, cfg.n_heads * cfg.hd, cfg.d_ff
+    per_layer = collections.Counter([(d, dq), (dq, d), (d, dff), (d, dff),
+                                     (dff, d)])
+    gen = torch.Generator(device='cuda').manual_seed(2)
+    for label, M in (('prefill', LM_BATCH * LM_PROMPT), ('decode', LM_BATCH)):
+        tot = {'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0, 'library_ms': 0.0}
+        for (K, N), count in sorted(per_layer.items()):
+            row, err = w8a8_row(torch, gen, M, K, N)
+            n = count * cfg.n_layers
+            print('[kernels] shape ' + json.dumps(
+                {'kernel': 'w8a8_matmul', 'shape': [M, K, N],
+                 'per_forward': n, 'max_abs_err': err,
+                 'kernel_ms': row['ms'], 'plain_ms': row['plain_ms'],
+                 'library_ms': row['library_ms'],
+                 'bound_ms': row['bound_ms'], 'bound_by': row['bound_by']}))
+            for k in tot:
+                tot[k] = (None if tot[k] is None or row[k] is None
+                          else tot[k] + n * row[k])
+        print(f'[kernels] w8a8_matmul: per {cfg.name} {label} forward '
+              f'({sum(per_layer.values()) * cfg.n_layers} launches at M = '
+              f'{M}): ' + json.dumps(tot))
 
 
 def serve(engine, reqs):
@@ -321,6 +487,144 @@ def phase_full(torch, numpy, ops, pipe, context, per_eval, card):
     return launches
 
 
+def phase_lm_small(torch, numpy, ops):
+    """Phase 6: the smoke InternLM2 on the card and on the CPU from one
+    seed, a prefill and ``SMALL_LM_STEPS`` decode steps, both fed the
+    CPU's greedy tokens; logits compared at every step."""
+    import copy
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.launch.steps import init_params
+    from repro_torch.models import transformer as T
+    cfg = smoke_config(LM_ARCH)
+    lms = {'cpu': init_params(torch.Generator().manual_seed(0), cfg, 'cpu')}
+    lms['cuda'] = copy.deepcopy(lms['cpu']).to('cuda')
+    B, S = 2, 40              # S is not a multiple of the 64-row tile
+    tokens = torch.from_numpy(numpy.random.default_rng(3).integers(
+        0, cfg.vocab, (B, S)))
+    for quant, tol in ((False, LM_SMALL_FP32_ATOL),
+                       (True, LM_SMALL_W8A8_ATOL)):
+        caches = {dev: T.init_lm_cache(cfg, B, S + SMALL_LM_STEPS,
+                                       torch.float32, dev) for dev in lms}
+        errs, sure = [], 0
+        flash0 = ops.launch_counts()['flash_attention']
+        with torch.no_grad():
+            logits = {dev: T.lm_prefill(lms[dev], cfg, tokens.to(dev),
+                                        caches[dev], dtype=torch.float32,
+                                        quant=quant)[0] for dev in lms}
+            check(ops.launch_counts()['flash_attention'] - flash0
+                  == cfg.n_layers, 'small LM prefill: flash launches '
+                  f'{ops.launch_counts()["flash_attention"] - flash0} != '
+                  f'{cfg.n_layers}')
+            for step in range(SMALL_LM_STEPS + 1):
+                a, b = logits['cuda'].cpu(), logits['cpu']
+                errs.append((a - b).abs().max().item())
+                top2 = b.topk(2, dim=-1).values
+                clear = (top2[..., 0] - top2[..., 1]) > tol
+                sure += int(clear.sum())
+                check(bool((a.argmax(-1) == b.argmax(-1))[clear].all()),
+                      f'small LM step {step}: card and CPU pick different '
+                      'tokens where the top-2 margin exceeds the tolerance')
+                if step == SMALL_LM_STEPS:
+                    break
+                nxt = b.argmax(-1).to(torch.int32)
+                logits = {dev: T.lm_decode(lms[dev], cfg, nxt.to(dev),
+                                           caches[dev], S + step,
+                                           dtype=torch.float32,
+                                           quant=quant)[0] for dev in lms}
+        err = max(errs)
+        print(f'[lm-small] {cfg.name} {"w8a8" if quant else "fp32"}: prefill '
+              f'{B}x{S} + {SMALL_LM_STEPS} decode steps, card vs CPU max abs '
+              f'logit err {err:.3e} (tol {tol}); tokens agree at all {sure} '
+              'positions with a top-2 margin above it')
+        check(err <= tol, f'small LM: card vs CPU {err} > {tol}')
+
+
+def phase_lm_full(torch, numpy, ops, card):
+    """Phase 7: InternLM2-1.8B at full width; the prefill-vs-lm_apply
+    check, then ``serve_lm`` at fp32 and w8a8 with launch counts.
+    Returns the launch counts of the serving runs."""
+    from repro_torch.configs.registry import get
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.launch.steps import init_params
+    from repro_torch.models import transformer as T
+    cfg = get(LM_ARCH)
+    t0 = time.perf_counter()
+    lm = init_params(torch.Generator(device='cuda').manual_seed(0), cfg,
+                     'cuda')
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in lm.parameters())
+    print(f'[lm-full] {cfg.name}: {n_params:,} parameters drawn on the card '
+          f'from seed 0 in {time.perf_counter() - t0:.1f} s')
+    tokens = torch.from_numpy(numpy.random.default_rng(0).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT))).to('cuda', torch.int32)
+    per_forward_mm = 5 * cfg.n_layers
+    for quant in (False, True):
+        tag = 'w8a8' if quant else 'fp32'
+        cache = T.init_lm_cache(cfg, LM_BATCH, LM_PROMPT + 1, torch.float32,
+                                'cuda')
+        with torch.no_grad():
+            ops.reset_launches()
+            last, cache = T.lm_prefill(lm, cfg, tokens, cache,
+                                       dtype=torch.float32, quant=quant)
+            pre = ops.launch_counts()
+            ops.reset_launches()
+            nxt = last.argmax(-1).to(torch.int32)
+            T.lm_decode(lm, cfg, nxt, cache, LM_PROMPT, dtype=torch.float32,
+                        quant=quant)
+            dec = ops.launch_counts()
+            del cache
+            full = T.lm_apply(lm, cfg, tokens, quant=quant)[:, -1]
+        diff = last[:, 0] - full
+        err = diff.abs().max().item()
+        scale = full.abs().max().item()
+        tol = LM_FULL_W8A8_RTOL * scale if quant else LM_FULL_FP32_ATOL
+        print(f'[lm-full] {tag} check: prefill last-token logits (flash) vs '
+              f'lm_apply (gqa_core): max abs err {err:.3e} (tol {tol:.3e}; '
+              f'max |logit| {scale:.3f}; relative L2 '
+              f'{(diff.norm() / full.norm()).item():.3e}); launches per '
+              f'prefill {pre}, per decode step {dec}')
+        del full
+        check(err <= tol, f'{tag}: prefill vs lm_apply {err} > {tol}')
+        check(pre['flash_attention'] == cfg.n_layers
+              and dec['flash_attention'] == 0,
+              f'{tag}: flash launches {pre}, {dec}: want {cfg.n_layers} per '
+              'prefill, 0 per decode step')
+        want_mm = per_forward_mm if quant else 0
+        check(pre['w8a8_matmul'] == want_mm == dec['w8a8_matmul'],
+              f'{tag}: w8a8 launches {pre}, {dec}: want {want_mm} per forward')
+    torch.cuda.empty_cache()
+
+    launches = collections.Counter()
+    for quant in (False, True):
+        tag = 'w8a8' if quant else 'fp32'
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()              # the LM path's run starts here
+        seqs, timing = serve_lm(cfg, LM_BATCH, LM_PROMPT, LM_TOKENS,
+                                quant=quant, dtype=torch.float32,
+                                device='cuda', params=lm)
+        got = ops.launch_counts()         # ... and ends here
+        launches.update(got)
+        check(tuple(seqs.shape) == (LM_BATCH, LM_TOKENS)
+              and seqs.dtype == torch.int32, f'{tag}: tokens {seqs.shape} '
+              f'{seqs.dtype}')
+        check(0 <= int(seqs.min()) and int(seqs.max()) < cfg.vocab,
+              f'{tag}: token ids outside the vocabulary')
+        want_mm = per_forward_mm * LM_TOKENS if quant else 0
+        check(got['flash_attention'] == cfg.n_layers
+              and got['w8a8_matmul'] == want_mm,
+              f'{tag}: launches {got}, want flash {cfg.n_layers} and w8a8 '
+              f'{want_mm}')
+        print(f'[lm-full] {card}: {cfg.name} {tag} serve_lm batch {LM_BATCH},'
+              f' prompt {LM_PROMPT}, {LM_TOKENS} new tokens: prefill '
+              f'{timing["prefill_s"]:.3f} s, decode {LM_TOKENS - 1} steps '
+              f'{timing["decode_s"]:.3f} s = {timing["decode_tok_s"]:.1f} '
+              f'tok/s, peak memory '
+              f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, '
+              f'launches {got}, tokens[0] {seqs[0, :8].tolist()}')
+    return launches
+
+
 def main() -> int:
     import numpy
     import torch
@@ -333,6 +637,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / 'src'))
     from repro_torch.configs.diffusion import SD_V1_4, VAE_512
+    from repro_torch.configs.registry import get
     from repro_torch.diffusion.pipeline import DiffusionPipeline
     from repro_torch.kernels import build, ops
 
@@ -351,7 +656,8 @@ def main() -> int:
     # phase 2: build
     t0 = time.perf_counter()
     build.build(TPU_KERNELS)
-    print(f'[build] both kernels built in {time.perf_counter() - t0:.2f} s')
+    print(f'[build] {len(TPU_KERNELS)} kernels built in '
+          f'{time.perf_counter() - t0:.2f} s')
     for name, log in build.build_logs.items():
         for line in log.splitlines():
             if 'registers' in line or 'spill' in line:
@@ -367,16 +673,31 @@ def main() -> int:
           f'{sum(p.numel() for p in pipe.unet.parameters()):,} parameters + '
           f'VAE decoder built from seed 0 in {time.perf_counter() - t0:.1f} s')
 
-    # phase 3: kernels at the path's shapes
+    # phase 3: kernels at the paths' shapes
+    lm_cfg = get(LM_ARCH)
     summary, per_eval = phase_kernels(torch, ops, pipe, context)
     check(per_eval['fused_gn_swish'] == 45 and per_eval['w8a8_matmul'] == 128,
           f'SD v1.4 launches per evaluation {per_eval}, expected 45 / 128')
+    summary['flash_attention'] = phase_flash(torch, lm_cfg.n_layers)
+    phase_w8a8_lm(torch, lm_cfg)
 
     # phase 4: small width, card vs CPU
     phase_small(torch, numpy)
 
     # phase 5: full width through the engine
-    launches = phase_full(torch, numpy, ops, pipe, context, per_eval, card)
+    launches = collections.Counter(
+        phase_full(torch, numpy, ops, pipe, context, per_eval, card))
+    print(f'[full] diffusion path launches: {dict(launches)}')
+    del pipe, context
+    torch.cuda.empty_cache()
+
+    # phase 6: LM small width, card vs CPU
+    phase_lm_small(torch, numpy, ops)
+
+    # phase 7: LM full width
+    lm_launches = phase_lm_full(torch, numpy, ops, card)
+    print(f'[lm-full] LM path launches: {dict(lm_launches)}')
+    launches.update(lm_launches)
 
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():

@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
-"""Where the device time of one serving tick goes, for the PyTorch/CUDA
+"""Where the device time of one serving step goes, for the PyTorch/CUDA
 port on one GPU.
 
     python3 scripts/torch_profile_step.py [--slots 4] [--ticks 3]
+    python3 scripts/torch_profile_step.py --lm [--ticks 3]
 
-Builds Stable Diffusion v1.4 at full width with random weights from seed
-0 (no VAE: decode is not part of a denoise tick), fills every slot of a
-``ContinuousBatchingEngine`` with requests of one (precision, guidance)
-mix, and profiles ``--ticks`` steady ticks with ``torch.profiler``.  For
-each mix it prints the host wall time per tick (synchronised), the
-summed kernel time, the device idle share (1 - kernel time / wall), the
-time per kernel family, and the heaviest kernels.  Needs a GPU.
+Diffusion (the default): builds Stable Diffusion v1.4 at full width with
+random weights from seed 0 (no VAE: decode is not part of a denoise
+tick), fills every slot of a ``ContinuousBatchingEngine`` with requests
+of one (precision, guidance) mix, and profiles ``--ticks`` steady ticks.
+``--lm``: builds InternLM2-1.8B with random weights from seed 0 and
+profiles, at fp32 and w8a8, one prefill of ``serve_lm``'s traffic (batch
+4, a 1000-token prompt, float32 activations and cache) and ``--ticks``
+decode steps after it.  For each it prints, from ``torch.profiler``, the
+host wall time per step (synchronised), the summed kernel time, the
+device idle share (1 - kernel time / wall), the time per kernel family,
+and the heaviest kernels.  Needs a GPU.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ ROOT = Path(__file__).resolve().parents[1]
 FAMILIES = (                       # first match wins, on the kernel name
     ('fused_gn_swish (ours)', ('fused_gn_swish',)),
     ('w8a8_matmul (ours)', ('w8a8_matmul',)),
+    ('flash_attention (ours)', ('flash_attention',)),
     ('convolution', ('conv', 'implicit', 'wgrad', 'dgrad', 'winograd',
                      'fft')),
     ('matmul', ('gemm', 'cutlass', 'sm90_xmma', 'ampere', 'cublas')),
@@ -43,13 +49,80 @@ def family(name: str) -> str:
     return 'other'
 
 
+def profile_steps(torch, title: str, step, n: int) -> None:
+    """Profile ``n`` calls of ``step`` and print the breakdown."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = collections.Counter()
+    for e in kernels:
+        by_name[e.name] += e.time_range.elapsed_us() / 1e3 / n
+    busy = sum(by_name.values())
+    fams = collections.Counter()
+    for name, ms in by_name.items():
+        fams[family(name)] += ms
+    print(f'\n[{title}] per step: wall {wall_ms:.3f} ms, kernels '
+          f'{busy:.3f} ms, device idle '
+          f'{(1 - busy / wall_ms) if busy else float("nan"):.1%}')
+    if not kernels:
+        print('  the profiler recorded no device activity')
+        return
+    for fam, ms in fams.most_common():
+        print(f'  {fam:24s} {ms:9.3f} ms  {ms / busy:6.1%}')
+    for name, ms in by_name.most_common(6):
+        print(f'    {ms:8.3f} ms  {name[:90]}')
+
+
+def profile_lm(torch, card: str, decode_steps: int) -> None:
+    import numpy as np
+    from repro_torch.configs.registry import get
+    from repro_torch.launch import steps as ST
+    cfg = get('internlm2-1.8b')
+    batch, prompt = 4, 1000
+    lm = ST.init_params(torch.Generator(device='cuda').manual_seed(0), cfg,
+                        'cuda')
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (batch, prompt))).to('cuda', torch.int32)
+    for quant in (False, True):
+        tag = 'w8a8' if quant else 'fp32'
+        prefill = ST.build_prefill_step(cfg, torch.float32, quant)
+        decode = ST.build_decode_step(cfg, torch.float32, quant)
+        state = ST.init_serve_state(cfg, batch, prompt + decode_steps + 2,
+                                    torch.float32, 'cuda')
+        out = {'pos': prompt}
+
+        def run_prefill():
+            out['tok'], out['state'] = prefill(lm, state, {'tokens': tokens})
+
+        def run_decode():
+            out['tok'], out['state'] = decode(lm, out['state'], out['tok'],
+                                              out['pos'])
+            out['pos'] += 1
+
+        run_prefill()                               # warm: kernels loaded
+        profile_steps(torch, f'{cfg.name} {tag} prefill {batch}x{prompt}, '
+                      f'{card}', run_prefill, 1)
+        run_decode()                                # warm
+        profile_steps(torch, f'{cfg.name} {tag} decode step, batch {batch},'
+                      f' {card}', run_decode, decode_steps)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--slots', type=int, default=4)
     ap.add_argument('--ticks', type=int, default=3)
+    ap.add_argument('--lm', action='store_true',
+                    help='profile InternLM2-1.8B prefill and decode')
     args = ap.parse_args()
     import torch
-    from torch.profiler import ProfilerActivity, profile
     if not torch.cuda.is_available():
         print('torch_profile_step: needs a CUDA GPU', file=sys.stderr)
         return 2
@@ -64,6 +137,9 @@ def main() -> int:
                            '--format=csv,noheader'], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(card)
+    if args.lm:
+        profile_lm(torch, card, args.ticks)
+        return 0
     pipe = DiffusionPipeline.init(0, SD_V1_4, device='cuda')
     ctx = torch.randn((args.slots, 77, SD_V1_4.context_dim),
                       generator=torch.Generator().manual_seed(1)).cuda()
@@ -77,34 +153,9 @@ def main() -> int:
                     precision=precision))
             engine.tick()                      # admission + a warm tick
             engine.tick()
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                for _ in range(args.ticks):
-                    engine.tick()
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3 / args.ticks
-            kernels = [e for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA]
-            by_name = collections.Counter()
-            for e in kernels:
-                by_name[e.name] += e.time_range.elapsed_us() / 1e3 / args.ticks
-            busy = sum(by_name.values())
-            fams = collections.Counter()
-            for name, ms in by_name.items():
-                fams[family(name)] += ms
-            print(f'\n[{precision}, guidance {guidance}] {card}: '
-                  f'{args.slots} slots, per tick: wall {wall_ms:.3f} ms, '
-                  f'kernels {busy:.3f} ms, device idle '
-                  f'{(1 - busy / wall_ms) if busy else float("nan"):.1%}')
-            if not kernels:
-                print('  the profiler recorded no device activity')
-                continue
-            for fam, ms in fams.most_common():
-                print(f'  {fam:24s} {ms:9.3f} ms  {ms / busy:6.1%}')
-            for name, ms in by_name.most_common(6):
-                print(f'    {ms:8.3f} ms  {name[:90]}')
+            profile_steps(torch, f'{precision}, guidance {guidance}, '
+                          f'{card}, {args.slots} slots, tick',
+                          engine.tick, args.ticks)
     return 0
 
 

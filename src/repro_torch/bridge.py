@@ -15,6 +15,7 @@ load is strict: a missing or unexpected key raises.
 """
 from __future__ import annotations
 
+import types
 from typing import Any, Dict
 
 import numpy as np
@@ -35,14 +36,50 @@ def _flatten(tree: Any, prefix: str, out: Dict[str, Any]) -> None:
         out[prefix[:-1]] = tree
 
 
+def _is_qtensor(leaf: Any) -> bool:
+    return hasattr(leaf, 'q') and hasattr(leaf, 'scale')
+
+
 def load_jax_params(module: nn.Module, tree: Any) -> nn.Module:
     """Copy the reference tree ``tree`` into ``module`` (in place, on the
     module's device); returns the module."""
     flat: Dict[str, Any] = {}
     _flatten(tree, '', flat)
+    return _load_flat(module, flat)
+
+
+def load_jax_lm_params(module: nn.Module, tree: Any) -> nn.Module:
+    """Copy the reference LM tree into an LM module.  The reference stacks
+    the block params on a leading layer axis (``blocks.sub0.attn.wq.w``
+    of shape ``(n_layers, d, d)``); every leaf under ``blocks`` is
+    unstacked into ``blocks.{i}.sub0...``.  Strict, as
+    ``load_jax_params``; a leaf whose leading axis is not the module's
+    layer count raises."""
+    flat: Dict[str, Any] = {}
+    _flatten(tree, '', flat)
+    n = len(module.blocks)
+    out: Dict[str, Any] = {}
+    for key, leaf in flat.items():
+        if not key.startswith('blocks.'):
+            out[key] = leaf
+            continue
+        rest = key[len('blocks.'):]
+        parts = ((np.asarray(leaf.q), np.asarray(leaf.scale))
+                 if _is_qtensor(leaf) else (np.asarray(leaf),))
+        if any(a.shape[:1] != (n,) for a in parts):
+            raise ValueError(f'{key}: leading axis {parts[0].shape[:1]} is '
+                             f'not the {n} layers of the module')
+        for i in range(n):
+            out[f'blocks.{i}.{rest}'] = (
+                types.SimpleNamespace(q=parts[0][i], scale=parts[1][i])
+                if _is_qtensor(leaf) else parts[0][i])
+    return _load_flat(module, out)
+
+
+def _load_flat(module: nn.Module, flat: Dict[str, Any]) -> nn.Module:
     state: Dict[str, torch.Tensor] = {}
     for key, leaf in flat.items():
-        if hasattr(leaf, 'q') and hasattr(leaf, 'scale'):
+        if _is_qtensor(leaf):
             owner = module.get_submodule(key.rsplit('.', 1)[0])
             if not isinstance(owner, L.Linear):
                 raise ValueError(f'{key}: a QTensor leaf must be a Linear '

@@ -2,23 +2,26 @@
 
 They do what the reference wrappers do around the Pallas kernels
 (activation quantization, weight quantization unless pre-quantized, the
-GroupNorm group fallback) and dispatch by the tensor's device: a CUDA
-tensor always launches the hand-written kernel, a CPU tensor runs the
-plain PyTorch version, and any other device raises.  There is no switch
-and no fallback from one to the other.
+GroupNorm group fallback, folding heads into the batch) and dispatch by
+the tensor's device: a CUDA tensor always launches the hand-written
+kernel, a CPU tensor runs the plain PyTorch version, and any other
+device raises.  There is no switch and no fallback from one to the
+other.
 """
 from __future__ import annotations
 
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import torch
 
 from repro_torch.core.quantization import (QTensor, quantize,
                                            quantize_per_channel)
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_gn_swish as _gn
 from repro_torch.kernels import w8a8_matmul as _mm
 
-_KERNEL_MODULES = {'fused_gn_swish': _gn, 'w8a8_matmul': _mm}
+_KERNEL_MODULES = {'fused_gn_swish': _gn, 'w8a8_matmul': _mm,
+                   'flash_attention': _fa}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -68,3 +71,22 @@ def fused_gn_swish(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     if _on_cuda(x, 'fused_gn_swish'):
         return _gn.fused_gn_swish_kernel(x.contiguous(), scale, bias, g)
     return _gn.gn_swish_plain(x, scale, bias, g)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = False,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q (B, H, S, d), k/v (B, H, T, d) -> (B, H, S, d) in q's type."""
+    B, H, S, d = q.shape
+    T = k.shape[2]
+    qf = q.reshape(B * H, S, d)
+    kf = k.reshape(B * H, T, d)
+    vf = v.reshape(B * H, T, d)
+    if _on_cuda(q, 'flash_attention'):
+        out = _fa.flash_attention_kernel(qf.contiguous(), kf.contiguous(),
+                                         vf.contiguous(), causal=causal,
+                                         scale=scale)
+    else:
+        out = _fa.flash_attention_plain(qf, kf, vf, causal=causal,
+                                        scale=scale)
+    return out.reshape(B, H, S, d)

@@ -1,15 +1,19 @@
 """Foundational layers, port of ``repro/models/layers.py``.
 
 Functions on tensors: ``linear`` per precision policy, ``conv2d``,
-``groupnorm``, ``swish`` and ``conv_transpose2d``.  Layouts follow the
-reference at these functions: NHWC activations and ``(in, out)`` linear
-weights.  Conv kernels are OIHW ``(out, in, kh, kw)``, the reference's
-HWIO kernel transposed, so cuDNN reads them without a copy.
+``groupnorm``, ``swish`` and ``conv_transpose2d``; for the LMs
+``embedding``, ``embedding_logits``, ``layernorm``, ``rmsnorm``, ``gelu``
+(the tanh approximation, as the reference's) and ``mlp``.  Layouts
+follow the reference at these functions: NHWC / BSD activations and
+``(in, out)`` linear weights.  Conv kernels are OIHW ``(out, in, kh,
+kw)``, the reference's HWIO kernel transposed, so cuDNN reads them
+without a copy.
 
-The small modules at the end (``Linear``, ``Conv``, ``GroupNorm``) only
-hold parameters, under the names of the reference's param dicts (``w``,
-``b``, ``scale``, ``bias``), so a model's ``state_dict`` keys are the
-reference pytree's key paths.
+The small modules at the end (``Linear``, ``Conv``, ``GroupNorm``,
+``Embedding``, ``RMSNorm``, ``LayerNorm``, ``MLP``) only hold
+parameters, under the names of the reference's param dicts (``w``,
+``b``, ``scale``, ``bias``, ``table``, ``up``/``gate``/``down``), so a
+model's ``state_dict`` keys are the reference pytree's key paths.
 """
 from __future__ import annotations
 
@@ -38,11 +42,11 @@ def linear(x: torch.Tensor, w: Union[torch.Tensor, QTensor],
                 'w8a8+noise needs a threefry-compatible noise generator, '
                 'which a later slice of the port adds')
         from repro_torch.kernels import ops
-        y = ops.w8a8_matmul(x, w)
+        y = ops.w8a8_matmul(x, w).to(x.dtype)
     else:
-        y = x @ w
+        y = x @ w.to(x.dtype)
     if b is not None:
-        y = y + b
+        y = y + b.to(y.dtype)
     return y
 
 
@@ -98,6 +102,55 @@ def swish(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh approximation, as ``jax.nn.gelu(approximate=True)``."""
+    return torch.nn.functional.gelu(x, approximate='tanh')
+
+
+ACTIVATIONS = {'swish': swish, 'silu': swish, 'gelu': gelu,
+               'relu': torch.relu}
+
+
+def embedding(p: 'Embedding', ids: torch.Tensor,
+              dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return p.table[ids].to(dtype)
+
+
+def embedding_logits(p: 'Embedding', x: torch.Tensor) -> torch.Tensor:
+    """Tied readout: x @ table^T, float32 out."""
+    return (x @ p.table.to(x.dtype).T).float()
+
+
+def layernorm(p: 'LayerNorm', x: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p.scale + p.bias).to(x.dtype)
+
+
+def rmsnorm(p: 'RMSNorm', x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    ms = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * p.scale).to(x.dtype)
+
+
+def mlp(p: 'MLP', x: torch.Tensor, act: str = 'swish',
+        quant: bool = False) -> torch.Tensor:
+    """Gated (``act(gate(x)) * up(x)``) when ``p`` has a gate, else
+    ``act(up(x))``; then ``down``.  ``quant`` runs all three on W8A8."""
+    f = ACTIVATIONS[act]
+    pol = 'w8a8' if quant else None
+    up = p.up(x, pol)
+    h = f(p.gate(x, pol)) * up if p.gate is not None else f(up)
+    return p.down(h, pol)
+
+
+def pad_vocab(vocab: int, multiple: int) -> int:
+    return -(-vocab // multiple) * multiple
+
+
 # ---------------------------------------------------------------------------
 # parameter holders
 # ---------------------------------------------------------------------------
@@ -121,10 +174,15 @@ class QWeight(nn.Module):
 
 
 class Linear(nn.Module):
-    def __init__(self, d_in: int, d_out: int, bias: bool = True, device=None):
+    """``stddev`` set: the weight initialises normal with that stddev
+    (the LM head), else fan-in uniform."""
+
+    def __init__(self, d_in: int, d_out: int, bias: bool = True, device=None,
+                 stddev: Optional[float] = None):
         super().__init__()
         self.w = _empty((d_in, d_out), device)
         self.b = _empty((d_out,), device) if bias else None
+        self.stddev = stddev
 
     @property
     def weight(self) -> Union[torch.Tensor, QTensor]:
@@ -161,15 +219,52 @@ class GroupNorm(nn.Module):
         return groupnorm(x, self.scale, self.bias, groups)
 
 
+class Embedding(nn.Module):
+    def __init__(self, vocab: int, d: int, device=None):
+        super().__init__()
+        self.table = _empty((vocab, d), device)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, d: int, device=None):
+        super().__init__()
+        self.scale = _empty((d,), device)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, d: int, device=None):
+        super().__init__()
+        self.scale = _empty((d,), device)
+        self.bias = _empty((d,), device)
+
+
+class MLP(nn.Module):
+    def __init__(self, d: int, d_ff: int, gated: bool = True,
+                 bias: bool = False, device=None):
+        super().__init__()
+        self.up = Linear(d, d_ff, bias, device)
+        self.down = Linear(d_ff, d, bias, device)
+        self.gate = Linear(d, d_ff, bias, device) if gated else None
+
+
 @torch.no_grad()
 def init_params(module: nn.Module, generator: torch.Generator) -> None:
     """The reference's initialisation, drawn from ``generator``: fan-in
-    uniform weights, zero biases, unit GroupNorm scales.  Parameters are
-    visited in registration order, so a seed fixes every value."""
+    uniform weights (normal with stddev 0.02 for embedding tables and
+    ``Linear``s given a ``stddev``), zero biases, unit norm scales.
+    Parameters are visited in registration order, so a seed fixes every
+    value."""
     for m in module.modules():
-        if isinstance(m, GroupNorm):
+        if isinstance(m, (GroupNorm, LayerNorm, RMSNorm)):
             m.scale.fill_(1.0)
-            m.bias.zero_()
+            if not isinstance(m, RMSNorm):
+                m.bias.zero_()
+        elif isinstance(m, Embedding):
+            m.table.normal_(0.0, 0.02, generator=generator)
+        elif isinstance(m, Linear) and m.stddev is not None:
+            m.w.normal_(0.0, m.stddev, generator=generator)
+            if m.b is not None:
+                m.b.zero_()
         elif isinstance(m, (Linear, Conv)):
             w = m.w
             fan_in = w.shape[0] if isinstance(m, Linear) else \

@@ -1,0 +1,242 @@
+"""Port attention vs the reference on the same numpy inputs: the flash
+wrapper (the plain streaming version a CPU tensor runs) against the
+reference wrapper with its Pallas kernel in interpret mode, the streaming
+LSE softmax, RoPE, ``gqa_core``, and the attention layer without a cache
+(``impl`` 'xla' and 'pallas'), as a prefill into a cache and as decode
+steps against it.
+
+Tolerances: 2e-5 for attention outputs, the reference kernel test's own
+(float32 sums in another order: tiles of 128 against einsums); 1e-5 for
+RoPE and the layer's projections, which differ only in summation order
+and in the last bit of cos/sin."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import registry as jreg
+from repro.core import lse_softmax as jlse
+from repro.kernels import ops as jops
+from repro.models import attention as JA
+from repro_torch.bridge import load_jax_params
+from repro_torch.configs import registry as treg
+from repro_torch.core import lse_softmax as tlse
+from repro_torch.kernels import ops as tops
+from repro_torch.models import attention as TA
+
+ATOL = 2e-5
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """Tiny tensors: one intra-op thread, so parallel test workers do not
+    oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _np(shape, seed, scale=1.0):
+    return (np.random.default_rng(seed).normal(size=shape) * scale
+            ).astype(np.float32)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+# ---------------------------------------------------------------------------
+# flash attention and the streaming softmax
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('S,T,d,causal', [
+    (128, 128, 64, False), (128, 128, 64, True),
+    (256, 256, 32, True), (128, 384, 64, False),
+    (100, 128, 64, True),       # ragged q
+])
+def test_flash_attention_matches_reference_kernel(S, T, d, causal):
+    B, H = 2, 3
+    q, k, v = (_np((B, H, S, d), 1), _np((B, H, T, d), 2),
+               _np((B, H, T, d), 3))
+    if causal and S != T:
+        k, v = k[:, :, :S], v[:, :, :S]
+    want = jops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), causal=causal,
+                                mode='interpret')
+    got = tops.flash_attention(_t(q), _t(k), _t(v), causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+@pytest.mark.parametrize('T,causal,block', [
+    (256, False, 64), (200, False, 128), (200, True, 128), (77, False, 32),
+])
+def test_streaming_attention_matches_reference(T, causal, block):
+    """Ragged T pads to the block and masks the padded keys."""
+    S = T if causal else 96
+    q, k, v = _np((2, 2, S, 32), 4), _np((2, 2, T, 32), 5), \
+        _np((2, 2, T, 32), 6)
+    want = jlse.streaming_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                        jnp.asarray(v), block=block,
+                                        causal=causal)
+    got = tlse.streaming_attention_ref(_t(q), _t(k), _t(v), block=block,
+                                       causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+def test_stream_update_broadcasts_values_over_query_dims():
+    """Scores (..., B) with value rows (..., B, d): one query per row."""
+    s1, s2, v1, v2 = (_np((3, 16), 7), _np((3, 16), 8), _np((3, 16, 8), 9),
+                      _np((3, 16, 8), 10))
+    js = jlse.stream_init((3,), 8)
+    ts = tlse.stream_init((3,), 8)
+    for s, v in ((s1, v1), (s2, v2)):
+        js = jlse.stream_update(js, jnp.asarray(s), jnp.asarray(v))
+        ts = tlse.stream_update(ts, _t(s), _t(v))
+    np.testing.assert_allclose(tlse.stream_finalize(ts).numpy(),
+                               np.asarray(jlse.stream_finalize(js)),
+                               atol=ATOL)
+
+
+def test_flash_attention_keeps_bf16_and_takes_scale():
+    q, k, v = (_np((1, 2, 40, 16), 11), _np((1, 2, 40, 16), 12),
+               _np((1, 2, 40, 16), 13))
+    out = tops.flash_attention(_t(q).bfloat16(), _t(k).bfloat16(),
+                               _t(v).bfloat16(), causal=True, scale=0.3)
+    assert out.dtype == torch.bfloat16 and out.shape == (1, 2, 40, 16)
+    want = jops.flash_attention(
+        jnp.asarray(q, jnp.bfloat16), jnp.asarray(k, jnp.bfloat16),
+        jnp.asarray(v, jnp.bfloat16), causal=True, scale=0.3,
+        mode='interpret')
+    # both round a float32 result to bf16: at most one bf16 ulp apart
+    want = np.asarray(want.astype(jnp.float32))
+    assert (np.abs(out.float().numpy() - want)
+            <= 2.0 ** -7 * np.abs(want) + 1e-6).all()
+
+
+def test_flash_attention_refuses_other_devices():
+    x = torch.zeros((1, 1, 4, 16), device='meta')
+    with pytest.raises(ValueError, match='no kernel for device'):
+        tops.flash_attention(x, x, x)
+
+
+# ---------------------------------------------------------------------------
+# RoPE and the attention cores
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('hd,theta', [(16, 1e4), (128, 1e4), (32, 1e5)])
+def test_rope_matches_reference(hd, theta):
+    x = _np((2, 9, 3, hd), 14)
+    pos = np.stack([np.arange(9), np.arange(30, 39)]).astype(np.int32)
+    want = JA.rope(jnp.asarray(x), jnp.asarray(pos), theta)
+    got = TA.rope(_t(x), _t(pos), theta)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+def test_apply_rope_none_passes_through_and_mrope_waits():
+    x = torch.ones(1, 2, 1, 4)
+    cfg = treg.smoke_config('whisper-base')          # rope = 'none'
+    assert TA.apply_rope(cfg, x, torch.zeros(1, 2)) is x
+    with pytest.raises(NotImplementedError, match='item 7e'):
+        TA.apply_rope(treg.smoke_config('qwen2-vl-7b'), x,
+                      torch.zeros(1, 2))
+
+
+@pytest.mark.parametrize('S,T,causal,q_offset,kv_len', [
+    (7, 7, True, 0, None),       # plain causal self-attention
+    (5, 9, False, 0, None),      # cross-attention shape
+    (7, 12, True, 0, 7),         # prefill into a longer cache
+    (1, 12, True, 7, 8),         # one decode step
+    (3, 12, True, 4, 7),         # several new rows against the cache
+])
+def test_gqa_core_matches_reference(S, T, causal, q_offset, kv_len):
+    q, k, v = _np((2, S, 4, 16), 15), _np((2, T, 2, 16), 16), \
+        _np((2, T, 2, 16), 17)
+    want = JA.gqa_core(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                       causal=causal, q_offset=q_offset, kv_len=kv_len)
+    got = TA.gqa_core(_t(q), _t(k), _t(v), causal=causal, q_offset=q_offset,
+                      kv_len=kv_len)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+def test_flash_core_equals_gqa_core_on_grouped_heads():
+    q, k, v = _np((2, 11, 4, 16), 18), _np((2, 11, 2, 16), 19), \
+        _np((2, 11, 2, 16), 20)
+    a = TA.flash_core(_t(q), _t(k), _t(v), causal=True)
+    b = TA.gqa_core(_t(q), _t(k), _t(v), causal=True)
+    np.testing.assert_allclose(a.numpy(), b.numpy(), atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# the attention layer in its three modes
+# ---------------------------------------------------------------------------
+
+def _layer(arch, kv_repeat=1):
+    import jax
+    jcfg = jreg.smoke_config(arch).scaled(kv_repeat=kv_repeat)
+    tcfg = treg.smoke_config(arch).scaled(kv_repeat=kv_repeat)
+    jp = JA.init_attention(jax.random.PRNGKey(3), jcfg)
+    if jcfg.attn_bias:       # the reference initialises biases to zero
+        jp = {k: dict(w, b=jnp.asarray(_np(w['b'].shape, 21, 0.1)))
+              for k, w in jp.items()}
+    tp = load_jax_params(TA.Attention(tcfg), jax.tree_util.tree_map(
+        np.asarray, jp))
+    return jcfg, tcfg, jp, tp
+
+
+@pytest.mark.parametrize('arch', ['internlm2-1.8b', 'starcoder2-7b'])
+@pytest.mark.parametrize('impl', ['xla', 'pallas'])
+def test_attention_without_cache_matches_reference(arch, impl):
+    jcfg, tcfg, jp, tp = _layer(arch)
+    x = _np((2, 10, jcfg.d_model), 22)
+    want, _ = JA.attention(jp, jcfg, jnp.asarray(x), impl=impl)
+    got, cache = TA.attention(tp, tcfg, _t(x), impl=impl)
+    assert cache is None
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+@pytest.mark.parametrize('arch,kv_repeat', [('internlm2-1.8b', 1),
+                                            ('internlm2-1.8b', 2),
+                                            ('starcoder2-7b', 1)])
+def test_attention_prefill_and_decode_match_reference(arch, kv_repeat):
+    jcfg, tcfg, jp, tp = _layer(arch, kv_repeat)
+    S, steps, B = 9, 3, 2
+    jc = JA.init_attention_cache(jcfg, B, S + steps, jnp.float32)
+    tc = TA.init_attention_cache(tcfg, B, S + steps, torch.float32)
+    x = _np((B, S, jcfg.d_model), 23)
+    want, jc = JA.attention(jp, jcfg, jnp.asarray(x), cache=jc, cache_pos=0)
+    got, tc = TA.attention(tp, tcfg, _t(x), cache=tc, cache_pos=0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    for i in range(steps):
+        x1 = _np((B, 1, jcfg.d_model), 24 + i)
+        want, jc = JA.attention(jp, jcfg, jnp.asarray(x1), cache=jc,
+                                cache_pos=S + i)
+        got, tc = TA.attention(tp, tcfg, _t(x1), cache=tc, cache_pos=S + i)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    for name in ('k', 'v'):
+        np.testing.assert_allclose(tc[name].numpy(), np.asarray(jc[name]),
+                                   atol=1e-5)
+
+
+def test_prefill_reads_the_cache_in_its_dtype():
+    """Into a bf16 cache, the prefill's flash path is the reference's
+    cache branch: gqa_core over the rounded cache rows."""
+    _, tcfg, _, tp = _layer('internlm2-1.8b')
+    B, S = 2, 9
+    x = _t(_np((B, S, tcfg.d_model), 25))
+    cache = TA.init_attention_cache(tcfg, B, S + 4, torch.bfloat16)
+    got, cache = TA.attention(tp, tcfg, x, cache=cache, cache_pos=0)
+    pos = torch.arange(S)[None].expand(B, S)
+    q = TA.apply_rope(tcfg, tp.wq(x).reshape(B, S, tcfg.n_heads, tcfg.hd),
+                      pos)
+    out = TA.gqa_core(q, cache['k'], cache['v'], causal=True, kv_len=S)
+    want = tp.wo(out.reshape(B, S, -1))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
+    k_f32, _ = TA._project_kv(tp, tcfg, x, pos)
+    assert torch.equal(cache['k'][:, :S], k_f32.bfloat16())
+
+
+def test_attention_rejects_unknown_impl():
+    _, tcfg, _, tp = _layer('internlm2-1.8b')
+    with pytest.raises(ValueError, match='impl'):
+        TA.attention(tp, tcfg, torch.zeros(1, 2, tcfg.d_model), impl='tpu')

@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from repro_torch.core import quantization as tq
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import fused_gn_swish as tgn
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import w8a8_matmul as tmm
@@ -63,3 +64,57 @@ def test_kernel_wrappers_check_their_inputs_on_card(cuda):
     with pytest.raises(ValueError, match='bad operand shapes'):
         tmm.w8a8_matmul_kernel(q, torch.ones(3, 1, device=cuda), q,
                                torch.ones(1, 8, device=cuda))
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16', 'mixed'])
+@pytest.mark.parametrize('S,T,causal', [(1000, 1000, True), (100, 100, True),
+                                        (128, 384, False), (77, 200, False),
+                                        (200, 77, False), (1, 1, True)])
+@pytest.mark.parametrize('d', [16, 32, 64, 128])
+def test_flash_attention_kernel_on_card(cuda, d, S, T, causal, dtype):
+    """Ragged S and T are masked in the kernel.  float32: within 2e-5 of
+    the plain version (the reference kernel test's tolerance); bf16 out:
+    within one bf16 ulp of each element (both round a float32 result)
+    plus 1e-5 for the float32 difference underneath.  'mixed' is a float32
+    q against a bf16 KV cache, as the prefill reads it."""
+    gen = torch.Generator(device=cuda).manual_seed(d + S + T)
+    q, k, v = (torch.randn(shape, device=cuda, generator=gen)
+               for shape in ((6, S, d), (6, T, d), (6, T, d)))
+    if dtype != 'float32':
+        k, v = k.bfloat16(), v.bfloat16()
+        if dtype == 'bfloat16':
+            q = q.bfloat16()
+    out = tfa.flash_attention_kernel(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    ref = tfa.flash_attention_plain(q, k, v, causal=causal)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    err = (out.float() - ref.float()).abs()
+    if q.dtype == torch.float32:
+        assert err.max().item() <= 2e-5
+    else:
+        assert bool((err <= 2.0 ** -7 * ref.float().abs() + 1e-5).all())
+
+
+def test_flash_attention_wrapper_launches_once_per_call(cuda):
+    q = torch.randn((2, 3, 50, 64), device=cuda)
+    before = tops.launch_counts()['flash_attention']
+    out = tops.flash_attention(q, q, q, causal=True)
+    torch.cuda.synchronize()
+    assert tops.launch_counts()['flash_attention'] == before + 1
+    ref = tfa.flash_attention_plain(q.reshape(6, 50, 64), q.reshape(6, 50, 64),
+                                    q.reshape(6, 50, 64), causal=True)
+    assert (out.reshape(6, 50, 64) - ref).abs().max().item() <= 2e-5
+
+
+def test_flash_attention_kernel_checks_its_inputs(cuda):
+    x = torch.randn((2, 8, 48), device=cuda)
+    with pytest.raises(ValueError, match='head dim'):
+        tfa.flash_attention_kernel(x, x, x)
+    x = torch.randn((2, 8, 64), device=cuda)
+    with pytest.raises(ValueError, match='dtypes'):
+        tfa.flash_attention_kernel(x.bfloat16(), x, x)
+    with pytest.raises(ValueError, match='contiguous'):
+        y = torch.randn((2, 64, 8), device=cuda).transpose(1, 2)
+        tfa.flash_attention_kernel(x, y, y)
+    with pytest.raises(ValueError, match='bad shapes'):
+        tfa.flash_attention_kernel(x, x[:1], x[:1])
