@@ -9,16 +9,24 @@ Phases, each printing its own lines:
    card's name and power limit as ``nvidia-smi`` reports them;
 2. build: compile the three CUDA kernels from ``src/repro_torch/csrc``
    (one ``nvcc`` each, in parallel) and print the seconds and ptxas's
-   report;
+   report; count the int8 ``wgmma`` instructions (``IGMMA``) in the W8A8
+   library's SASS with ``cuobjdump`` and fail if there are none;
 3. kernels: find every shape the Stable Diffusion v1.4 UNet hands each
    kernel at batch = the engine's slot count (one w8a8 forward with and
    one without context), then at each shape hold the kernel against its
    plain PyTorch version (w8a8 exactly; GroupNorm+swish within
    ``GN_ATOL``) and time kernel, plain version and PyTorch yardstick
-   (``time_ms``), beside the card's bound for the same work; likewise
+   (``time_ms``; for our two kernels also the device time alone, replayed
+   from a CUDA graph, ``graph_ms``, and for GroupNorm a plain copy of the
+   same bytes), beside the card's bound for the same work, with the
+   GroupNorm kernel's cluster plan (and how many of its clusters the card
+   holds at once) and the W8A8 kernel's tile plan at each shape, and the
+   W8A8 weight quantization with and without the K-major copy the kernel
+   reads (glue on the dynamic path); likewise
    the flash-attention kernel at the InternLM2-1.8B prefill shape and
    the reference kernel test's shapes (``FLASH_SHAPES``), and the W8A8
-   kernel at the LM's projection shapes;
+   kernel at the LM's projection shapes (``torch._int_mm`` refuses M <=
+   16, so at the decode step it is timed on M padded to 32 rows);
 4. small width: serve a guided fp32, an unguided fp32 and a w8a8 request
    of a tiny SD-shaped model through the engine on the card and on the
    CPU from the same seeds, and compare the images;
@@ -56,6 +64,8 @@ from __future__ import annotations
 import collections
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -155,6 +165,23 @@ def time_ms(torch, fn, reps: int = 20, calls: int = 10) -> float:
     return statistics.median(times)
 
 
+def graph_ms(torch, fn, calls: int = 20) -> float:
+    """Device time of one call without the host: ``calls`` calls captured
+    once in a CUDA graph, the replay timed by ``time_ms``.  Beside
+    ``time_ms`` of the same call it shows how much of a small kernel's
+    time is the wrapper's host work."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                  # warm, outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return time_ms(torch, graph.replay, reps=10, calls=3) / calls
+
+
 def record_shapes(ops, fn):
     """Run ``fn`` with the kernel wrappers recording the shapes they are
     called with; returns {kernel: Counter(shape key)}."""
@@ -183,33 +210,75 @@ def record_shapes(ops, fn):
     return seen
 
 
+def find_cuobjdump():
+    """The toolkit's ``cuobjdump``, or the copy in Triton's package."""
+    found = shutil.which('cuobjdump')
+    home = Path(os.environ.get('CUDA_HOME', '/usr/local/cuda'))
+    if not found and (home / 'bin' / 'cuobjdump').exists():
+        found = str(home / 'bin' / 'cuobjdump')
+    if not found:
+        try:
+            import triton
+        except ImportError:
+            return None
+        path = Path(triton.__file__).parent / 'backends/nvidia/bin/cuobjdump'
+        found = str(path) if path.exists() else None
+    return found
+
+
+def count_igmma(lib: Path) -> int:
+    """Int8 ``wgmma`` instructions (SASS ``IGMMA``) in a built library."""
+    tool = find_cuobjdump()
+    check(tool is not None, 'cuobjdump not found (CUDA toolkit or Triton)')
+    sass = subprocess.run([tool, '-sass', str(lib)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    return sum('IGMMA' in line for line in sass.splitlines())
+
+
 def w8a8_row(torch, gen, M: int, K: int, N: int):
-    """The W8A8 kernel at (M, K) x (K, N) on random operands: held
-    bit-exact against its plain version, then kernel, plain and
-    ``torch._int_mm`` timed beside the bound.  Returns (row, max abs
-    err)."""
+    """The W8A8 kernel at (M, K) x (K, N) on random operands, K-major and
+    K-padded as the wrapper hands them over: held bit-exact against the
+    plain version on the unpadded (K, N) operands, then kernel, plain and
+    ``torch._int_mm`` timed beside the bound, and the weight's quantization
+    with and without the K-major copy.  Returns (row, max abs err)."""
     from repro_torch.core.quantization import quantize, quantize_per_channel
     from repro_torch.kernels import w8a8_matmul as mmk
     xm = torch.randn((M, K), device='cuda', generator=gen)
     wm = torch.randn((K, N), device='cuda', generator=gen)
     xq, wq = quantize(xm, axis=(1,)), quantize_per_channel(wm)
     ws = wq.scale.reshape(1, N).contiguous()
-    out = mmk.w8a8_matmul_kernel(xq.q, xq.scale, wq.q, ws)
+    xp, wt = mmk.pad_k(xq.q), mmk.kmajor_weight(wq.q)
+    out = mmk.w8a8_matmul_kernel(xp, xq.scale, wt, ws)
     ref = mmk.w8a8_matmul_plain(xq.q, xq.scale, wq.q, ws)
     err = (out - ref).abs().max().item()
     check(torch.equal(out, ref), f'w8a8_matmul {(M, K, N)}: not bit-exact, '
           f'max abs err {err}')
     row = {
         'ms': time_ms(torch, lambda: mmk.w8a8_matmul_kernel(
-            xq.q, xq.scale, wq.q, ws)),
+            xp, xq.scale, wt, ws)),
+        'device_ms': graph_ms(torch, lambda: mmk.w8a8_matmul_kernel(
+            xp, xq.scale, wt, ws)),
         'plain_ms': time_ms(torch, lambda: mmk.w8a8_matmul_plain(
             xq.q, xq.scale, wq.q, ws)),
+        'wquant_ms': time_ms(torch, lambda: quantize_per_channel(wm)),
+        'wquant_kmajor_ms': time_ms(
+            torch, lambda: mmk.quantize_weight_kmajor(wm)),
     }
-    try:       # yardstick only: the port never calls it
-        row['library_ms'] = time_ms(torch, lambda: torch._int_mm(xq.q, wq.q))
+    # yardstick only, the port never calls it; it refuses M <= 16, so
+    # there it runs on the rows padded with zeros to 32
+    xl = xq.q
+    if M <= 16:
+        xl = torch.cat([xq.q, xq.q.new_zeros((32 - M, K))])
+    row['library_rows'] = xl.shape[0]
+    try:
+        row['library_ms'] = time_ms(torch, lambda: torch._int_mm(xl, wq.q))
     except RuntimeError as e:
-        print(f'[kernels] torch._int_mm {(M, K, N)}: {e}')
+        print(f'[kernels] torch._int_mm {(xl.shape[0], K, N)}: {e}')
         row['library_ms'] = None
+    plan = mmk.w8a8_plan(M, N, K)
+    row['plan'] = {'swap': plan.swap, 'bn': plan.bn, 'split': plan.split,
+                   'blocks': plan.blocks,
+                   'device_launches': plan.device_launches}
     nbytes = M * K + K * N + 4 * M + 4 * N + 4 * M * N
     b_bytes = nbytes / HBM_BYTES_PER_S
     b_ops = 2 * M * N * K / INT8_OPS_PER_S
@@ -220,8 +289,14 @@ def w8a8_row(torch, gen, M: int, K: int, N: int):
 
 def phase_kernels(torch, ops, pipe, context):
     """Phase 3: every path shape, kernel vs plain, with times."""
+    import ctypes
+
     import torch.nn.functional as F
+    from repro_torch.kernels import build
     from repro_torch.kernels import fused_gn_swish as gnk
+    occupancy = build.load('fused_gn_swish').fused_gn_swish_max_clusters
+    occupancy.argtypes = [ctypes.c_int] * 3
+    occupancy.restype = ctypes.c_int
     cfg = pipe.unet_cfg
     x = torch.randn((SLOTS, cfg.img_size, cfg.img_size, cfg.in_ch),
                     device='cuda')
@@ -235,7 +310,11 @@ def phase_kernels(torch, ops, pipe, context):
     gen = torch.Generator(device='cuda').manual_seed(0)
     summary = {}
     for name in ('fused_gn_swish', 'w8a8_matmul'):
-        tot = {'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0, 'library_ms': 0.0}
+        tot = {'ms': 0.0, 'device_ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0,
+               'library_ms': 0.0}
+        tot.update(dict.fromkeys(('wquant_ms', 'wquant_kmajor_ms')
+                                 if name == 'w8a8_matmul' else ('copy_ms',),
+                                 0.0))
         errs, bound_by = [], set()
         for shape, count in sorted(cond[name].items()):
             if name == 'fused_gn_swish':
@@ -252,10 +331,15 @@ def phase_kernels(torch, ops, pipe, context):
                 row = {
                     'ms': time_ms(torch, lambda: gnk.fused_gn_swish_kernel(
                         xg, sc, bi, g)),
+                    'device_ms': graph_ms(torch, lambda: gnk.
+                                          fused_gn_swish_kernel(xg, sc, bi,
+                                                                g)),
                     'plain_ms': time_ms(torch, lambda: gnk.gn_swish_plain(
                         xg, sc, bi, g)),
                     'library_ms': time_ms(torch, lambda: F.silu(
                         F.group_norm(xc, g, sc, bi, 1e-5))),
+                    # the same bytes read and written once by a plain copy
+                    'copy_ms': time_ms(torch, xg.clone),
                 }
                 nbytes = 2 * N * H * W * C * 4 + 2 * C * 4
                 b_bytes = nbytes / HBM_BYTES_PER_S
@@ -265,6 +349,18 @@ def phase_kernels(torch, ops, pipe, context):
                 row['bound_ms'] = max(b_bytes, b_ops) * 1e3
                 row['bound_by'] = ('bytes' if b_bytes >= b_ops
                                    else 'operations')
+                plan = gnk.gn_plan(H * W, C // g)
+                # clusters the card holds at once: how many waves the grid
+                # of N * g clusters takes
+                resident = occupancy(C // g, plan.cluster, plan.smem)
+                check(resident > 0, f'fused_gn_swish {shape}: occupancy '
+                      f'query failed ({resident})')
+                row['plan'] = {'cluster': plan.cluster, 'chunk': plan.chunk,
+                               'resident': plan.resident,
+                               'smem': plan.smem,
+                               'blocks': N * g * plan.cluster,
+                               'clusters_at_once': resident,
+                               'waves': N * g / resident}
             else:
                 row, err = w8a8_row(torch, gen, *shape)
             bound_by.add(row['bound_by'])
@@ -272,8 +368,12 @@ def phase_kernels(torch, ops, pipe, context):
             print('[kernels] shape ' + json.dumps(
                 {'kernel': name, 'shape': list(shape), 'per_eval': count,
                  'max_abs_err': err, 'kernel_ms': row['ms'],
+                 'device_ms': row['device_ms'],
                  'plain_ms': row['plain_ms'], 'library_ms': row['library_ms'],
-                 'bound_ms': row['bound_ms'], 'bound_by': row['bound_by']}))
+                 'bound_ms': row['bound_ms'], 'bound_by': row['bound_by'],
+                 'plan': row['plan'],
+                 **{k: row[k] for k in ('wquant_ms', 'wquant_kmajor_ms',
+                                        'copy_ms') if k in row}}))
             for k in tot:
                 if tot[k] is None or row[k] is None:
                     tot[k] = None
@@ -365,16 +465,21 @@ def phase_w8a8_lm(torch, cfg):
                                      (dff, d)])
     gen = torch.Generator(device='cuda').manual_seed(2)
     for label, M in (('prefill', LM_BATCH * LM_PROMPT), ('decode', LM_BATCH)):
-        tot = {'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0, 'library_ms': 0.0}
+        tot = {'ms': 0.0, 'device_ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0,
+               'library_ms': 0.0, 'wquant_ms': 0.0, 'wquant_kmajor_ms': 0.0}
         for (K, N), count in sorted(per_layer.items()):
             row, err = w8a8_row(torch, gen, M, K, N)
             n = count * cfg.n_layers
             print('[kernels] shape ' + json.dumps(
                 {'kernel': 'w8a8_matmul', 'shape': [M, K, N],
                  'per_forward': n, 'max_abs_err': err,
-                 'kernel_ms': row['ms'], 'plain_ms': row['plain_ms'],
+                 'kernel_ms': row['ms'], 'device_ms': row['device_ms'],
+                 'plain_ms': row['plain_ms'],
                  'library_ms': row['library_ms'],
-                 'bound_ms': row['bound_ms'], 'bound_by': row['bound_by']}))
+                 'library_shape': [row['library_rows'], K, N],
+                 'bound_ms': row['bound_ms'], 'bound_by': row['bound_by'],
+                 'plan': row['plan'], 'wquant_ms': row['wquant_ms'],
+                 'wquant_kmajor_ms': row['wquant_kmajor_ms']}))
             for k in tot:
                 tot[k] = (None if tot[k] is None or row[k] is None
                           else tot[k] + n * row[k])
@@ -655,13 +760,17 @@ def main() -> int:
 
     # phase 2: build
     t0 = time.perf_counter()
-    build.build(TPU_KERNELS)
+    libs = build.build(TPU_KERNELS)
     print(f'[build] {len(TPU_KERNELS)} kernels built in '
           f'{time.perf_counter() - t0:.2f} s')
     for name, log in build.build_logs.items():
         for line in log.splitlines():
             if 'registers' in line or 'spill' in line:
                 print(f'[build] {name}: {line.strip()}')
+    n_igmma = count_igmma(libs['w8a8_matmul'])
+    print(f'[build] w8a8_matmul SASS: {n_igmma} int8 wgmma (IGMMA) '
+          f'instructions ({find_cuobjdump()})')
+    check(n_igmma > 0, 'the W8A8 library holds no int8 wgmma instruction')
 
     # the full-width model, shared by phases 3 and 5
     t0 = time.perf_counter()

@@ -30,7 +30,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 FAMILIES = (                       # first match wins, on the kernel name
     ('fused_gn_swish (ours)', ('fused_gn_swish',)),
-    ('w8a8_matmul (ours)', ('w8a8_matmul',)),
+    ('w8a8_matmul (ours)', ('w8a8_matmul', 'w8a8_wgmma', 'w8a8_epilogue')),
     ('flash_attention (ours)', ('flash_attention',)),
     ('convolution', ('conv', 'implicit', 'wgrad', 'dgrad', 'winograd',
                      'fft')),

@@ -21,10 +21,23 @@ class QTensor:
 
     q: torch.Tensor      # int8
     scale: torch.Tensor  # float32, broadcastable against q
+    #: a 2-D weight's K-major copy for the CUDA W8A8 kernel: (N, K padded
+    #: to 16) int8, built once per weight (``layers.QWeight``); None
+    #: elsewhere.  ``q`` keeps the reference's (K, N).
+    kmajor: Optional[torch.Tensor] = None
 
     @property
     def shape(self):
         return self.q.shape
+
+
+def rounded(x: torch.Tensor, axis: Tuple[int, ...]):
+    """The int8 values of ``quantize(x, axis)`` still in float32, and the
+    scale; the caller casts (and may lay out) the values."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=axis, keepdim=True)
+    scale = amax.clamp_min(1e-8) / INT8_MAX
+    return torch.clamp(torch.round(xf / scale), -INT8_MAX, INT8_MAX), scale
 
 
 def quantize(x: torch.Tensor,
@@ -34,10 +47,7 @@ def quantize(x: torch.Tensor,
     output channel uses ``axis=(0,)``."""
     if axis is None:
         axis = tuple(range(x.ndim))
-    xf = x.float()
-    amax = xf.abs().amax(dim=axis, keepdim=True)
-    scale = amax.clamp_min(1e-8) / INT8_MAX
-    q = torch.clamp(torch.round(xf / scale), -INT8_MAX, INT8_MAX)
+    q, scale = rounded(x, axis)
     return QTensor(q.to(torch.int8), scale)
 
 

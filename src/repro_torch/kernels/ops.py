@@ -46,18 +46,29 @@ def w8a8_matmul(x: torch.Tensor,
                 w: Union[torch.Tensor, QTensor]) -> torch.Tensor:
     """x (..., K) float, w (K, N) float or pre-quantized QTensor ->
     (..., N) float32.  Activations quantize per row (dynamic), weights per
-    output channel unless already a QTensor (serve-time prequant)."""
+    output channel unless already a QTensor (serve-time prequant).  On
+    CUDA both are written K-major and K-padded for the kernel in the pass
+    that quantizes them; a QTensor's K-major copy is reused when it has
+    one."""
     lead = x.shape[:-1]
     K = x.shape[-1]
-    xq = quantize(x.reshape(-1, K), axis=(1,))
-    wq = w if isinstance(w, QTensor) else quantize_per_channel(w)
-    N = wq.q.shape[-1]
-    ws = wq.scale.reshape(1, N)
+    x2 = x.reshape(-1, K)
     if _on_cuda(x, 'w8a8_matmul'):
-        out = _mm.w8a8_matmul_kernel(xq.q, xq.scale, wq.q.contiguous(),
-                                     ws.contiguous())
+        xq, xs = _mm.quantize_rows_padded(x2)
+        if isinstance(w, QTensor):
+            wt = w.kmajor if w.kmajor is not None else _mm.kmajor_weight(w.q)
+            ws = w.scale
+        else:
+            wt, ws = _mm.quantize_weight_kmajor(w)
+        N = wt.shape[0]
+        out = _mm.w8a8_matmul_kernel(xq, xs, wt,
+                                     ws.reshape(1, N).contiguous())
     else:
-        out = _mm.w8a8_matmul_plain(xq.q, xq.scale, wq.q, ws)
+        xq = quantize(x2, axis=(1,))
+        wq = w if isinstance(w, QTensor) else quantize_per_channel(w)
+        N = wq.q.shape[-1]
+        out = _mm.w8a8_matmul_plain(xq.q, xq.scale, wq.q,
+                                    wq.scale.reshape(1, N))
     return out.reshape(*lead, N)
 
 

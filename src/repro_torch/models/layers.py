@@ -168,9 +168,21 @@ class QWeight(nn.Module):
         super().__init__()
         self.register_buffer('q', qt.q)
         self.register_buffer('scale', qt.scale)
+        self._kmajor = None     # (q it was built from, q's version, copy)
 
     def qtensor(self) -> QTensor:
-        return QTensor(self.q, self.scale)
+        """On CUDA with the K-major copy the kernel reads, built once per
+        weight: at the first call after ``q`` was set, moved or loaded
+        (the bridge loads ``q`` after ``quantize_()``, so the copy cannot
+        be made there)."""
+        if not self.q.is_cuda:
+            return QTensor(self.q, self.scale)
+        c = self._kmajor
+        if c is None or c[0] is not self.q or c[1] != self.q._version:
+            from repro_torch.kernels.w8a8_matmul import kmajor_weight
+            c = self._kmajor = (self.q, self.q._version,
+                                kmajor_weight(self.q))
+        return QTensor(self.q, self.scale, c[2])
 
 
 class Linear(nn.Module):

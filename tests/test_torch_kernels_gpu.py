@@ -24,7 +24,10 @@ def cuda():
 
 
 @pytest.mark.parametrize('N,H,W,C,g', [(4, 64, 64, 340, 20),
-                                       (4, 8, 8, 2720, 32), (3, 5, 7, 96, 6)])
+                                       (4, 64, 64, 1020, 30),
+                                       (4, 16, 16, 1360, 20),
+                                       (4, 8, 8, 2720, 32), (3, 5, 7, 96, 6),
+                                       (1, 128, 128, 256, 8)])
 def test_gn_swish_kernel_on_card(cuda, N, H, W, C, g):
     gen = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn((N, H, W, C), device=cuda, generator=gen) * 3 + 1
@@ -39,16 +42,43 @@ def test_gn_swish_kernel_on_card(cuda, N, H, W, C, g):
 
 
 @pytest.mark.parametrize('M,K,N', [(4096, 680, 680), (308, 768, 1360),
+                                   (4000, 2048, 8192), (4, 8192, 2048),
+                                   (4, 2048, 2048), (12, 2048, 2048),
+                                   (20, 768, 680), (40, 680, 1360),
                                    (257, 129, 65), (1, 300, 7)])
 def test_w8a8_kernel_on_card_is_exact(cuda, M, K, N):
+    """Bit-exact at the large-M tiles, the small-M split-K path (M < 64)
+    and ragged M, N, K."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn((M, K), device=cuda, generator=gen)
     w = torch.randn((K, N), device=cuda, generator=gen)
+    before = tops.launch_counts()['w8a8_matmul']
     out = tops.w8a8_matmul(x, w)
     torch.cuda.synchronize()
+    assert tops.launch_counts()['w8a8_matmul'] == before + 1
     xq, wq = tq.quantize(x, axis=(1,)), tq.quantize_per_channel(w)
     ref = tmm.w8a8_matmul_plain(xq.q, xq.scale, wq.q, wq.scale.reshape(1, N))
     assert torch.equal(out, ref)
+
+
+def test_w8a8_prequantized_qtensor_on_card(cuda):
+    """A pre-quantized Linear weight reaches the kernel through its
+    K-major copy, built once, and matches the dynamic path exactly."""
+    from repro_torch.models.layers import Linear
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    lin = Linear(680, 1360, device=cuda)
+    lin.w.data = torch.randn((680, 1360), device=cuda, generator=gen)
+    x = torch.randn((2, 77, 680), device=cuda, generator=gen)
+    want = tops.w8a8_matmul(x, lin.w.data)
+    lin.quantize_()
+    qt = lin.weight
+    assert qt.q.shape == (680, 1360) and qt.kmajor.shape == (1360, 688)
+    assert lin.weight.kmajor is qt.kmajor          # built once
+    before = tops.launch_counts()['w8a8_matmul']
+    got = tops.w8a8_matmul(x, qt)
+    torch.cuda.synchronize()
+    assert tops.launch_counts()['w8a8_matmul'] == before + 1
+    assert got.shape == (2, 77, 1360) and torch.equal(got, want)
 
 
 def test_kernel_wrappers_check_their_inputs_on_card(cuda):
@@ -60,9 +90,19 @@ def test_kernel_wrappers_check_their_inputs_on_card(cuda):
     with pytest.raises(ValueError, match='float32'):
         tgn.fused_gn_swish_kernel(x.double(), torch.ones(8, device=cuda),
                                   torch.zeros(8, device=cuda), 4)
-    q = torch.zeros((3, 8), dtype=torch.int8, device=cuda)
+    q = torch.zeros((3, 16), dtype=torch.int8, device=cuda)
+    w = torch.zeros((8, 32), dtype=torch.int8, device=cuda)
     with pytest.raises(ValueError, match='bad operand shapes'):
+        tmm.w8a8_matmul_kernel(q, torch.ones(3, 1, device=cuda), w,
+                               torch.ones(1, 8, device=cuda))
+    q = torch.zeros((3, 8), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match='not padded'):
         tmm.w8a8_matmul_kernel(q, torch.ones(3, 1, device=cuda), q,
+                               torch.ones(1, 3, device=cuda))
+    q = torch.zeros(3 * 16 + 1, dtype=torch.int8, device=cuda)[1:]
+    with pytest.raises(ValueError, match='16-byte aligned'):
+        tmm.w8a8_matmul_kernel(q.view(3, 16), torch.ones(3, 1, device=cuda),
+                               w[:, :16].contiguous(),
                                torch.ones(1, 8, device=cuda))
 
 
