@@ -10,7 +10,8 @@ Phases, each printing its own lines:
 2. build: compile the three CUDA kernels from ``src/repro_torch/csrc``
    (one ``nvcc`` each, in parallel) and print the seconds and ptxas's
    report; count the int8 ``wgmma`` instructions (``IGMMA``) in the W8A8
-   library's SASS with ``cuobjdump`` and fail if there are none;
+   library's SASS and the TF32 ones (``HGMMA`` ... ``TF32``) in the flash
+   library's with ``cuobjdump``, and fail if either has none;
 3. kernels: find every shape the Stable Diffusion v1.4 UNet hands each
    kernel at batch = the engine's slot count (one w8a8 forward with and
    one without context), then at each shape hold the kernel against its
@@ -24,7 +25,11 @@ Phases, each printing its own lines:
    W8A8 weight quantization with and without the K-major copy the kernel
    reads (glue on the dynamic path); likewise
    the flash-attention kernel at the InternLM2-1.8B prefill shape and
-   the reference kernel test's shapes (``FLASH_SHAPES``), and the W8A8
+   the reference kernel test's shapes (``FLASH_SHAPES``; bound at the
+   TF32 peak times the kernel's passes, beside the float32 CUDA-core
+   bound of the earlier CUDA-core kernel), and its grouped entry
+   ``flash_attention_bshd`` at the prefill's own layout (q (4, 1000,
+   16, 128) against a slice of a (4, 1001, 8, 128) cache), and the W8A8
    kernel at the LM's projection shapes (``torch._int_mm`` refuses M <=
    16, so at the decode step it is timed on M padded to 32 rows);
 4. small width: serve a guided fp32, an unguided fp32 and a w8a8 request
@@ -41,8 +46,9 @@ Phases, each printing its own lines:
 7. LM full width: InternLM2-1.8B with random weights from seed 0 on the
    card.  First the check: the prefill's last-token logits (flash
    kernel) against ``lm_apply``'s at the last position (``gqa_core``) on
-   the same 4 x 1000 prompt tokens, with 24 flash launches per prefill
-   and none per decode step.  Then the LM path: ``serve_lm`` (batch 4,
+   the same 4 x 1000 prompt tokens, with 24 flash launches per prefill,
+   all through ``flash_attention_bshd`` on the cache where it lies, and
+   none per decode step.  Then the LM path: ``serve_lm`` (batch 4,
    a 1000-token prompt, 32 new tokens, float32) at fp32 and at w8a8,
    with the launch counters checked (24 flash launches per prefill, 120
    W8A8 launches per w8a8 forward), tokens in the vocabulary, and the
@@ -53,7 +59,9 @@ For ``fused_gn_swish`` and ``w8a8_matmul``, ``ms`` / ``plain_ms`` /
 ``library_ms`` / ``bound_ms`` are the times of one UNet evaluation's
 worth of that kernel's calls at batch 4 (the per-shape median times of
 phase 3, weighted by launches per evaluation); for ``flash_attention``
-they are one prefill's worth (24 launches at the path shape).
+they are one prefill's worth (24 launches at the path shape), with
+``passes`` (TF32 products per float32 product) and ``bound_f32_ms``
+(the float32 CUDA-core bound) beside them.
 ``launches`` is each kernel's count over the runs of phases 5 and 7.
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, and the run then exits non-zero with no result; so does a run
@@ -131,6 +139,7 @@ FLASH_SHAPES = [
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12           # dense int8 tensor-core peak
 F32_OPS_PER_S = 67e12              # float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12            # dense TF32 tensor-core peak
 TPU_KERNELS = {
     'fused_gn_swish': ('src/repro_torch/csrc/fused_gn_swish.cu',
                        'src/repro/kernels/fused_gn_swish.py:31'),
@@ -233,6 +242,16 @@ def count_igmma(lib: Path) -> int:
     sass = subprocess.run([tool, '-sass', str(lib)], capture_output=True,
                           text=True, check=True, timeout=120).stdout
     return sum('IGMMA' in line for line in sass.splitlines())
+
+
+def count_hgmma_tf32(lib: Path) -> int:
+    """TF32 ``wgmma`` instructions (SASS ``HGMMA`` with ``TF32``)."""
+    tool = find_cuobjdump()
+    check(tool is not None, 'cuobjdump not found (CUDA toolkit or Triton)')
+    sass = subprocess.run([tool, '-sass', str(lib)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    return sum('HGMMA' in line and 'TF32' in line
+               for line in sass.splitlines())
 
 
 def w8a8_row(torch, gen, M: int, K: int, N: int):
@@ -395,12 +414,52 @@ def flash_ops(BH: int, S: int, T: int, d: int, causal: bool) -> int:
     return 4 * BH * d * pairs
 
 
-def phase_flash(torch, n_layers: int):
+def flash_bound(fak, q, k, v, heads: int, S: int, T: int,
+                causal: bool) -> dict:
+    """The card's bound for attention on these operands: bytes (each
+    operand read once, the output written once) or operations, the
+    larger; the operations at the TF32 peak times the kernel's passes
+    (``bound_ms``), and at the float32 CUDA-core peak (``bound_f32_ms``,
+    the bound of the earlier CUDA-core kernel)."""
+    ops = flash_ops(heads, S, T, q.shape[-1], causal)
+    passes = fak.PASSES[k.dtype]
+    b_bytes = (2 * q.numel() * q.element_size()
+               + k.numel() * k.element_size()
+               + v.numel() * v.element_size()) / HBM_BYTES_PER_S
+    b_ops = passes * ops / TF32_OPS_PER_S
+    return {'bound_ms': max(b_bytes, b_ops) * 1e3,
+            'bound_by': 'bytes' if b_bytes >= b_ops else 'operations',
+            'passes': passes,
+            'bound_f32_ms': max(b_bytes, ops / F32_OPS_PER_S) * 1e3}
+
+
+def check_flash(what: str, out, ref, q_dtype) -> float:
+    """float32 out within ``FLASH_ATOL`` of the plain version; bf16 out
+    within one bf16 ulp plus that.  Returns the max abs error."""
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    if q_dtype == 'float32':
+        check(err <= FLASH_ATOL, f'{what}: max abs err {err} > {FLASH_ATOL}')
+    else:
+        over = (diff - 2.0 ** -7 * ref.float().abs()).max().item()
+        check(over <= FLASH_ATOL, f'{what}: {over} beyond one bf16 ulp')
+    return err
+
+
+def phase_flash(torch, n_layers: int, lm_cfg):
     """Phase 3, flash attention: kernel vs plain at ``FLASH_SHAPES``, with
-    times; returns the per-prefill summary (``n_layers`` launches at the
-    path shape, the first entry)."""
+    times; then the grouped entry at the prefill's layout.  Returns the
+    per-prefill summary (``n_layers`` launches at the path shape, the
+    first entry)."""
+    import ctypes
+
     import torch.nn.functional as F
+    from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fak
+    smem = build.load('flash_attention').flash_attention_smem
+    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+    print('[kernels] flash_attention dynamic shared memory per block: '
+          + json.dumps({d: smem(d) for d in fak.HEAD_DIMS}))
     gen = torch.Generator(device='cuda').manual_seed(1)
     rows = []
     for BH, S, T, d, causal, qt, kvt in FLASH_SHAPES:
@@ -411,17 +470,12 @@ def phase_flash(torch, n_layers: int):
         k, v = k.to(getattr(torch, kvt)), v.to(getattr(torch, kvt))
         out = fak.flash_attention_kernel(q, k, v, causal=causal)
         ref = fak.flash_attention_plain(q, k, v, causal=causal)
-        diff = (out.float() - ref.float()).abs()
-        err = diff.max().item()
-        what = f'flash_attention {(BH, S, T, d)} causal={causal} {qt}/{kvt}'
-        if q.dtype == torch.float32:
-            check(err <= FLASH_ATOL, f'{what}: max abs err {err} > '
-                  f'{FLASH_ATOL}')
-        else:
-            over = (diff - 2.0 ** -7 * ref.float().abs()).max().item()
-            check(over <= FLASH_ATOL, f'{what}: {over} beyond one bf16 ulp')
+        err = check_flash(f'flash_attention {(BH, S, T, d)} causal={causal} '
+                          f'{qt}/{kvt}', out, ref, qt)
         row = {
             'ms': time_ms(torch, lambda: fak.flash_attention_kernel(
+                q, k, v, causal=causal)),
+            'device_ms': graph_ms(torch, lambda: fak.flash_attention_kernel(
                 q, k, v, causal=causal)),
             'plain_ms': time_ms(torch, lambda: fak.flash_attention_plain(
                 q, k, v, causal=causal)),
@@ -429,29 +483,67 @@ def phase_flash(torch, n_layers: int):
             'library_ms': time_ms(
                 torch, lambda: F.scaled_dot_product_attention(
                     q, k, v, is_causal=causal)) if qt == kvt else None,
+            **flash_bound(fak, q, k, v, BH, S, T, causal),
         }
-        b_ops = flash_ops(BH, S, T, d, causal) / F32_OPS_PER_S
-        b_bytes = (2 * q.numel() * q.element_size()
-                   + 2 * k.numel() * k.element_size()) / HBM_BYTES_PER_S
-        row['bound_ms'] = max(b_bytes, b_ops) * 1e3
-        row['bound_by'] = 'bytes' if b_bytes >= b_ops else 'operations'
         row['max_abs_err'] = err
         rows.append(row)
         print('[kernels] shape ' + json.dumps(
             {'kernel': 'flash_attention', 'shape': [BH, S, T, d],
              'causal': causal, 'dtypes': [qt, kvt], 'max_abs_err': err,
-             'kernel_ms': row['ms'], 'plain_ms': row['plain_ms'],
-             'library_ms': row['library_ms'], 'bound_ms': row['bound_ms'],
-             'bound_by': row['bound_by']}))
+             'kernel_ms': row['ms'], 'device_ms': row['device_ms'],
+             'plain_ms': row['plain_ms'], 'library_ms': row['library_ms'],
+             'bound_ms': row['bound_ms'], 'bound_by': row['bound_by'],
+             'passes': row['passes'], 'bound_f32_ms': row['bound_f32_ms']}))
     path = rows[0]
     summary = {k: n_layers * path[k]
-               for k in ('ms', 'plain_ms', 'bound_ms', 'library_ms')}
+               for k in ('ms', 'device_ms', 'plain_ms', 'bound_ms',
+                         'bound_f32_ms', 'library_ms')}
     summary['bound_by'] = path['bound_by']
+    summary['passes'] = path['passes']
     summary['max_abs_err'] = max(r['max_abs_err'] for r, sh in
                                  zip(rows, FLASH_SHAPES) if sh[5:] ==
                                  ('float32', 'float32'))
     print(f'[kernels] flash_attention: per prefill ({n_layers} launches at '
           f'{FLASH_SHAPES[0][:4]}): ' + json.dumps(summary))
+
+    # the grouped entry at the prefill's layout: q (B, S, H, d) against the
+    # rows just written into a (B, S + 1, G, d) float32 cache, as they lie
+    B, S = LM_BATCH, LM_PROMPT
+    H, G, d = lm_cfg.n_heads, lm_cfg.n_kv_heads, lm_cfg.hd
+    q = torch.randn((B, S, H, d), device='cuda', generator=gen)
+    ck, cv = (torch.randn((B, S + 1, G, d), device='cuda', generator=gen)
+              for _ in range(2))
+    k, v = ck[:, :S], cv[:, :S]
+    out = fak.flash_attention_bshd_kernel(q, k, v, causal=True)
+    ref = fak.flash_attention_bshd_plain(q, k, v, causal=True)
+    err = check_flash(f'flash_attention_bshd {(B, S, H, G, d)}', out, ref,
+                      'float32')
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    try:                # yardstick only: the port never calls it
+        library = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+    except (RuntimeError, TypeError) as e:
+        print(f'[kernels] SDPA with enable_gqa: {e}')
+        library = None
+    row = {'ms': time_ms(torch, lambda: fak.flash_attention_bshd_kernel(
+               q, k, v, causal=True)),
+           'device_ms': graph_ms(torch, lambda: fak.
+                                 flash_attention_bshd_kernel(
+                                     q, k, v, causal=True)),
+           'plain_ms': time_ms(torch, lambda: fak.flash_attention_bshd_plain(
+               q, k, v, causal=True)),
+           'library_ms': library,
+           **flash_bound(fak, q, k, v, B * H, S, S, True)}
+    print('[kernels] shape ' + json.dumps(
+        {'kernel': 'flash_attention_bshd', 'shape': [B, S, H, G, d],
+         'cache_rows': S + 1, 'causal': True,
+         'dtypes': ['float32', 'float32'], 'max_abs_err': err,
+         'kernel_ms': row['ms'], 'device_ms': row['device_ms'],
+         'plain_ms': row['plain_ms'], 'library_ms': row['library_ms'],
+         'bound_ms': row['bound_ms'], 'bound_by': row['bound_by'],
+         'passes': row['passes'], 'bound_f32_ms': row['bound_f32_ms'],
+         'per_prefill_ms': n_layers * row['ms']}))
+    summary['max_abs_err'] = max(summary['max_abs_err'], err)
     return summary
 
 
@@ -644,6 +736,35 @@ def phase_lm_small(torch, numpy, ops):
         check(err <= tol, f'small LM: card vs CPU {err} > {tol}')
 
 
+def record_flash_entries(fak, fn):
+    """Run ``fn`` counting the calls of the flash kernel's two entries:
+    ``bshd`` (and how many of those read k/v that are views of a larger
+    tensor, i.e. the cache where it lies) and ``flat``.  The result of
+    ``fn`` comes back under ``result``."""
+    seen = collections.Counter(bshd=0, bshd_on_cache=0, flat=0)
+    bshd, flat = fak.flash_attention_bshd_kernel, fak.flash_attention_kernel
+
+    def bshd_rec(q, k, v, **kw):
+        seen['bshd'] += 1
+        seen['bshd_on_cache'] += int(
+            k._base is not None and v._base is not None
+            and k.untyped_storage().nbytes() > k.numel() * k.element_size())
+        return bshd(q, k, v, **kw)
+
+    def flat_rec(*args, **kw):
+        seen['flat'] += 1
+        return flat(*args, **kw)
+
+    fak.flash_attention_bshd_kernel = bshd_rec
+    fak.flash_attention_kernel = flat_rec
+    try:
+        result = fn()
+    finally:
+        fak.flash_attention_bshd_kernel = bshd
+        fak.flash_attention_kernel = flat
+    return dict(seen, result=result)
+
+
 def phase_lm_full(torch, numpy, ops, card):
     """Phase 7: InternLM2-1.8B at full width; the prefill-vs-lm_apply
     check, then ``serve_lm`` at fp32 and w8a8 with launch counts.
@@ -652,6 +773,7 @@ def phase_lm_full(torch, numpy, ops, card):
     from repro_torch.launch.serve import serve_lm
     from repro_torch.launch.steps import init_params
     from repro_torch.models import transformer as T
+    from repro_torch.kernels import flash_attention as fak
     cfg = get(LM_ARCH)
     t0 = time.perf_counter()
     lm = init_params(torch.Generator(device='cuda').manual_seed(0), cfg,
@@ -669,8 +791,9 @@ def phase_lm_full(torch, numpy, ops, card):
                                 'cuda')
         with torch.no_grad():
             ops.reset_launches()
-            last, cache = T.lm_prefill(lm, cfg, tokens, cache,
-                                       dtype=torch.float32, quant=quant)
+            entries = record_flash_entries(fak, lambda: T.lm_prefill(
+                lm, cfg, tokens, cache, dtype=torch.float32, quant=quant))
+            last, cache = entries.pop('result')
             pre = ops.launch_counts()
             ops.reset_launches()
             nxt = last.argmax(-1).to(torch.int32)
@@ -687,13 +810,17 @@ def phase_lm_full(torch, numpy, ops, card):
               f'lm_apply (gqa_core): max abs err {err:.3e} (tol {tol:.3e}; '
               f'max |logit| {scale:.3f}; relative L2 '
               f'{(diff.norm() / full.norm()).item():.3e}); launches per '
-              f'prefill {pre}, per decode step {dec}')
+              f'prefill {pre} (entries {entries}), per decode step {dec}')
         del full
         check(err <= tol, f'{tag}: prefill vs lm_apply {err} > {tol}')
         check(pre['flash_attention'] == cfg.n_layers
               and dec['flash_attention'] == 0,
               f'{tag}: flash launches {pre}, {dec}: want {cfg.n_layers} per '
               'prefill, 0 per decode step')
+        check(entries == {'bshd': cfg.n_layers, 'bshd_on_cache': cfg.n_layers,
+                          'flat': 0},
+              f'{tag}: flash entries per prefill {entries}: want every '
+              'launch through flash_attention_bshd on the cache')
         want_mm = per_forward_mm if quant else 0
         check(pre['w8a8_matmul'] == want_mm == dec['w8a8_matmul'],
               f'{tag}: w8a8 launches {pre}, {dec}: want {want_mm} per forward')
@@ -771,6 +898,10 @@ def main() -> int:
     print(f'[build] w8a8_matmul SASS: {n_igmma} int8 wgmma (IGMMA) '
           f'instructions ({find_cuobjdump()})')
     check(n_igmma > 0, 'the W8A8 library holds no int8 wgmma instruction')
+    n_hgmma = count_hgmma_tf32(libs['flash_attention'])
+    print(f'[build] flash_attention SASS: {n_hgmma} TF32 wgmma (HGMMA ... '
+          'TF32) instructions')
+    check(n_hgmma > 0, 'the flash library holds no TF32 wgmma instruction')
 
     # the full-width model, shared by phases 3 and 5
     t0 = time.perf_counter()
@@ -787,7 +918,7 @@ def main() -> int:
     summary, per_eval = phase_kernels(torch, ops, pipe, context)
     check(per_eval['fused_gn_swish'] == 45 and per_eval['w8a8_matmul'] == 128,
           f'SD v1.4 launches per evaluation {per_eval}, expected 45 / 128')
-    summary['flash_attention'] = phase_flash(torch, lm_cfg.n_layers)
+    summary['flash_attention'] = phase_flash(torch, lm_cfg.n_layers, lm_cfg)
     phase_w8a8_lm(torch, lm_cfg)
 
     # phase 4: small width, card vs CPU
@@ -816,7 +947,8 @@ def main() -> int:
             'replaces': replaces, 'launches': launches[name],
             'max_abs_err': s['max_abs_err'], 'ms': s['ms'],
             'plain_ms': s['plain_ms'], 'bound_ms': s['bound_ms'],
-            'bound_by': s['bound_by'], 'library_ms': s['library_ms']})
+            'bound_by': s['bound_by'], 'library_ms': s['library_ms'],
+            **{k: s[k] for k in ('passes', 'bound_f32_ms') if k in s}})
     check(all(math.isfinite(k['ms']) for k in kernels), 'bad kernel times')
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -45,6 +45,8 @@
 // * Tensor maps are encoded on the host per call and passed as
 //   __grid_constant__ parameters; cuTensorMapEncodeTiled comes from the
 //   driver through the runtime's entry-point query, so no -lcuda is needed.
+//   These helpers, the mbarriers and the descriptors live in hopper.cuh,
+//   shared with the flash-attention kernel.
 //
 // What still holds it back: the SD products are a few microseconds of
 // launch and pipeline fill each (18 to 192 blocks, 6 to 11 K boxes); at the
@@ -56,6 +58,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int BK = 128;               // K bytes per stage: one swizzle row
@@ -66,61 +70,6 @@ constexpr int kThreads = 128 * kConsumers + 32;   // + one producer warp
 constexpr int STAGES = 4;           // shared-memory ring depth
 template <int BN> constexpr int smem_bytes() {
   return STAGES * (ROWS + BN) * BK + 2 * STAGES * 8 + 1024;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-
-// Wait for the phase of `parity` to complete.  A wait that never ends (a
-// broken ring) traps, so the launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  for (uint32_t tries = 0; !done; ++tries) {
-    if (tries == (1u << 26)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-  }
-}
-
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         int k, int row, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(k),
-         "r"(row), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// Shared-memory matrix descriptor of a K-major tile with 128-byte swizzle:
-// rows of 128 bytes, 8-row groups 1024 bytes apart (SBO); LBO is unused
-// for swizzled K-major layouts.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void fence_operand(int& r) {
-  asm volatile("" : "+r"(r) :: "memory");
 }
 
 __device__ __forceinline__ void wgmma_s8_n8(int (&d)[4], uint64_t da, uint64_t db) {
@@ -339,31 +288,6 @@ __global__ void w8a8_epilogue_kernel(const int* __restrict__ acc,
   if (i >= (long long)M * N) return;
   const int m = (int)(i / N), n = (int)(i - (long long)m * N);
   out[i] = __fmul_rn(__fmul_rn((float)acc[i], xs[m]), ws[n]);
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 13000
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // Tensor map of a (rows, kp) int8 K-major matrix, boxes of box_rows x BK,

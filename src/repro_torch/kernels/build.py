@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its
 own with ``nvcc`` for ``sm_90a`` into ``build/<name>-<hash>.so`` at the
-repository root, where the hash covers the source and the flags: an
+repository root, where the hash covers the source, the shared headers
+``csrc/*.cuh`` and the flags: an
 edited source builds anew, an unchanged one is loaded as it is.  All
 sources compile in parallel, one ``nvcc`` each.  Nothing is built when
 this module is imported, and nothing here runs without ``nvcc``, so the
@@ -43,7 +44,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f'{name}.cu').read_bytes()
+    # every source includes the shared headers, so they are hashed too
+    src = (CSRC / f'{name}.cu').read_bytes() + b''.join(
+        h.read_bytes() for h in sorted(CSRC.glob('*.cuh')))
     digest = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f'{name}-{digest[:16]}.so'
 

@@ -2,7 +2,8 @@
 
 They do what the reference wrappers do around the Pallas kernels
 (activation quantization, weight quantization unless pre-quantized, the
-GroupNorm group fallback, folding heads into the batch) and dispatch by
+GroupNorm group fallback, folding heads into the batch, or reading
+grouped heads in place) and dispatch by
 the tensor's device: a CUDA tensor always launches the hand-written
 kernel, a CPU tensor runs the plain PyTorch version, and any other
 device raises.  There is no switch and no fallback from one to the
@@ -101,3 +102,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out = _fa.flash_attention_plain(qf, kf, vf, causal=causal,
                                         scale=scale)
     return out.reshape(B, H, S, d)
+
+
+def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = False,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """q (B, S, H, d), k/v (B, T, G, d) with H % G == 0 -> (B, S, H, d)
+    in q's type; query head h reads KV head h // (H // G).  On CUDA the
+    kernel reads every operand where it lies (a slice of the KV cache
+    included): no head repeat, no transpose, no copy."""
+    if _on_cuda(q, 'flash_attention'):
+        return _fa.flash_attention_bshd_kernel(q, k, v, causal=causal,
+                                               scale=scale)
+    return _fa.flash_attention_bshd_plain(q, k, v, causal=causal,
+                                          scale=scale)

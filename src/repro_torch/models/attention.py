@@ -12,8 +12,8 @@ Routing.  Without a cache, ``impl='xla'`` (the default) is ``gqa_core``
 and ``impl='pallas'`` is ``flash_core``, now the CUDA kernel.  With a
 cache, the prefill (``cache_pos == 0`` as a Python int) computes its
 output with ``flash_core`` over the rows just written into the cache,
-read back in the cache's dtype: the same function as the reference's
-``gqa_core`` over the whole cache, whose rows past S weigh
+read back in the cache's dtype where they lie: the same function as the
+reference's ``gqa_core`` over the whole cache, whose rows past S weigh
 ``exp(-1e30 - m) = 0``.  A decode step (``cache_pos > 0``) is
 ``gqa_core`` over the whole cache, as in the reference.  The cache is
 updated in place and the same dict comes back as the new cache (the
@@ -96,15 +96,10 @@ def gqa_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                causal: bool) -> torch.Tensor:
-    """The flash kernel on q (B, S, H, hd), k/v (B, T, G, hd): repeats
-    the KV heads (cheap against the S x T scores) and folds heads."""
-    H, G = q.shape[2], k.shape[2]
-    if H != G:
-        k = k.repeat_interleave(H // G, dim=2)
-        v = v.repeat_interleave(H // G, dim=2)
-    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=causal)
-    return out.transpose(1, 2)
+    """The flash kernel on q (B, S, H, hd), k/v (B, T, G, hd) as they lie
+    (the prefill passes slices of the cache): query head h reads KV head
+    h // (H // G), and the output comes back as (B, S, H, hd)."""
+    return ops.flash_attention_bshd(q, k, v, causal=causal)
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,7 @@ from repro.models import attention as JA
 from repro_torch.bridge import load_jax_params
 from repro_torch.configs import registry as treg
 from repro_torch.core import lse_softmax as tlse
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 from repro_torch.models import attention as TA
 
@@ -118,6 +119,151 @@ def test_flash_attention_refuses_other_devices():
     x = torch.zeros((1, 1, 4, 16), device='meta')
     with pytest.raises(ValueError, match='no kernel for device'):
         tops.flash_attention(x, x, x)
+    with pytest.raises(ValueError, match='no kernel for device'):
+        tops.flash_attention_bshd(x, x, x)
+
+
+def test_flash_kernel_entries_need_cuda_tensors():
+    """The kernel entries never run the plain version themselves: a CPU
+    tensor reaches the plain version only through ``ops``."""
+    x = torch.zeros((1, 4, 2, 16))
+    with pytest.raises(ValueError, match='needs CUDA tensors'):
+        tfa.flash_attention_bshd_kernel(x, x[:, :, :1], x[:, :, :1])
+    with pytest.raises(ValueError, match='needs CUDA tensors'):
+        tfa.flash_attention_kernel(x[0], x[0], x[0])
+
+
+@pytest.mark.parametrize('S,t_max,causal', [
+    (40, 64, True), (100, 128, True),      # ragged S, a longer cache
+    (40, 64, False), (77, 100, False),
+])
+def test_flash_attention_bshd_matches_reference_flash_core(monkeypatch, S,
+                                                           t_max, causal):
+    """The grouped entry on q (B, S, H, d) against cache[:, :S] of a
+    (B, t_max, G, d) cache with H / G = 2, passed as the non-contiguous
+    slices they are, against the reference's ``flash_core`` with its Pallas
+    kernel in interpret mode (as the reference's kernel tests run it) on
+    the same values.  Tolerance 2e-5, the reference kernel test's."""
+    monkeypatch.setenv('REPRO_KERNELS', 'interpret')
+    B, H, G, d = 2, 4, 2, 32
+    q = _np((B, S, H, d), 30)
+    ck, cv = _np((B, t_max, G, d), 31), _np((B, t_max, G, d), 32)
+    want = JA.flash_core(jnp.asarray(q), jnp.asarray(ck[:, :S]),
+                         jnp.asarray(cv[:, :S]), causal=causal)
+    k, v = _t(ck)[:, :S], _t(cv)[:, :S]
+    assert not k.is_contiguous()
+    got = tops.flash_attention_bshd(_t(q), k, v, causal=causal)
+    assert got.shape == (B, S, H, d) and got.is_contiguous()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+def test_flash_core_hands_the_cache_over_where_it_lies(monkeypatch):
+    """The prefill's ``flash_core`` passes q and the cache rows it wrote
+    to the grouped entry as they are: no repeated heads, no copies."""
+    _, tcfg, _, tp = _layer('internlm2-1.8b')
+    B, S = 2, 9
+    cache = TA.init_attention_cache(tcfg, B, S + 4, torch.float32)
+    seen = []
+    entry = tops.flash_attention_bshd
+
+    def record(q, k, v, **kw):
+        seen.append((q, k, v))
+        return entry(q, k, v, **kw)
+
+    monkeypatch.setattr(tops, 'flash_attention_bshd', record)
+    TA.attention(tp, tcfg, _t(_np((B, S, tcfg.d_model), 33)), cache=cache,
+                 cache_pos=0)
+    (q, k, v), = seen
+    assert q.shape == (B, S, tcfg.n_heads, tcfg.hd) and q.is_contiguous()
+    for got, full in ((k, cache['k']), (v, cache['v'])):
+        assert got.shape == (B, S, tcfg.n_kv_heads, tcfg.hd)
+        assert got.data_ptr() == full.data_ptr()
+        assert got.stride() == full.stride()
+
+
+# ---------------------------------------------------------------------------
+# the kernel's split arithmetic (3xTF32), emulated
+# ---------------------------------------------------------------------------
+
+FLASH_ATOL = 2e-5      # chip_smoke.py's tolerance for the float32 kernel
+
+
+def _tf32_round(x):
+    """The kernel's rounding to TF32: add half a TF32 ulp to the bits and
+    clear the 13 low mantissa bits."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xffffe000)).view(
+        np.float32)
+
+
+def _split(x):
+    hi = _tf32_round(x)
+    return hi, _tf32_round(np.float32(x) - hi)
+
+
+def _tc_product(pairs, a_rows, b_rows):
+    """sum_k a[:, k] b[:, k] as the tensor core runs it: each TF32 product
+    exact (float64), summed into a float32 accumulator, pass by pass."""
+    acc = np.zeros((a_rows[0].shape[0], b_rows[0].shape[0]), np.float32)
+    for ia, ib in pairs:
+        a, b = a_rows[ia].astype(np.float64), b_rows[ib].astype(np.float64)
+        for kk in range(a.shape[1]):
+            acc = (acc + np.outer(a[:, kk], b[:, kk]).astype(np.float32)
+                   ).astype(np.float32)
+    return acc
+
+
+def _emulated_attention(q, k, v, passes):
+    """Causal attention with both products emulated: ``passes`` 3 is
+    hi hi + hi lo + lo hi (small ones first), 2 drops hi lo (K and V
+    exact in TF32), 1 is plain TF32 (hi hi)."""
+    pairs = {3: [(0, 1), (1, 0), (0, 0)], 2: [(1, 0), (0, 0)],
+             1: [(0, 0)]}[passes]
+    d = q.shape[1]
+    qs = (q * np.float32(d ** -0.5)).astype(np.float32)
+    s = _tc_product(pairs, _split(qs), _split(k))
+    s = np.where(np.tril(np.ones(s.shape, bool)), s, np.float32(-1e30))
+    p = np.exp(s - s.max(axis=1, keepdims=True)).astype(np.float32)
+    l = p.sum(axis=1, keepdims=True, dtype=np.float32)
+    o = _tc_product(pairs, _split(p), _split(v.T))
+    return o / l
+
+
+@pytest.mark.parametrize('kv', ['float32', 'bfloat16'])
+def test_three_tf32_passes_keep_flash_within_its_tolerance(kv):
+    """At d = 128, S = T = 256, causal: the split products (three passes,
+    two for a bf16 K/V) stay within FLASH_ATOL of float64 attention, and
+    one plain TF32 pass does not, which is why the kernel compensates."""
+    q, k, v = (_np((256, 128), 34 + i) for i in range(3))
+    if kv == 'bfloat16':
+        k, v = (torch.from_numpy(x).bfloat16().float().numpy() for x in (k, v))
+        assert all((_split(x)[1] == 0).all() for x in (k, v))
+    q64, k64, v64 = (x.astype(np.float64) for x in (q, k, v))
+    s = (q64 * 128 ** -0.5) @ k64.T
+    s = np.where(np.tril(np.ones(s.shape, bool)), s, -np.inf)
+    p = np.exp(s - s.max(axis=1, keepdims=True))
+    want = (p / p.sum(axis=1, keepdims=True)) @ v64
+    passes = 3 if kv == 'float32' else 2
+    err = np.abs(_emulated_attention(q, k, v, passes) - want).max()
+    assert err <= FLASH_ATOL / 4
+    err1 = np.abs(_emulated_attention(q, k, v, 1) - want).max()
+    assert err1 > FLASH_ATOL
+
+
+def test_tf32_split_keeps_22_bits():
+    """hi + lo is x to within 2^-22 of |x|, hi alone only to 2^-11, and
+    hi and lo are TF32 values (13 low bits clear)."""
+    x = _np((4096,), 37) * np.float32(1e3)
+    x[:4] = [1.0, -0.0, 1.9999999, -3.0000002]
+    hi, lo = _split(x)
+    for part in (hi, lo):
+        assert not (part.view(np.uint32) & np.uint32(0x1fff)).any()
+    x64 = x.astype(np.float64)
+    rel = np.abs(hi.astype(np.float64) + lo - x64) / np.maximum(
+        np.abs(x64), 1e-30)
+    assert rel.max() <= 2.0 ** -22
+    assert (np.abs(hi - x64) / np.maximum(np.abs(x64), 1e-30)).max() \
+        > 2.0 ** -14
 
 
 # ---------------------------------------------------------------------------

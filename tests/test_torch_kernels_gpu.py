@@ -158,3 +158,77 @@ def test_flash_attention_kernel_checks_its_inputs(cuda):
         tfa.flash_attention_kernel(x, y, y)
     with pytest.raises(ValueError, match='bad shapes'):
         tfa.flash_attention_kernel(x, x[:1], x[:1])
+
+
+def _flash_check(out, ref, q_dtype):
+    """float32 out: within 2e-5 of the plain version; bf16 out: one bf16
+    ulp of each element plus 1e-5 (both round a float32 result)."""
+    err = (out.float() - ref.float()).abs()
+    if q_dtype == torch.float32:
+        assert err.max().item() <= 2e-5
+    else:
+        assert bool((err <= 2.0 ** -7 * ref.float().abs() + 1e-5).all())
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16', 'mixed'])
+@pytest.mark.parametrize('S,causal', [(100, True), (77, False), (1, True)])
+@pytest.mark.parametrize('d', [16, 32, 64, 128])
+def test_flash_attention_bshd_reads_a_grouped_cache_slice(cuda, d, S, causal,
+                                                          dtype):
+    """q (B, S, H, d) against k/v = cache[:, :S] of a (B, T_max, G, d)
+    cache with H / G = 2, passed as the non-contiguous slices they are."""
+    B, H, G, t_max = 2, 4, 2, 130
+    gen = torch.Generator(device=cuda).manual_seed(d + S)
+    q = torch.randn((B, S, H, d), device=cuda, generator=gen)
+    ck, cv = (torch.randn((B, t_max, G, d), device=cuda, generator=gen)
+              for _ in range(2))
+    if dtype != 'float32':
+        ck, cv = ck.bfloat16(), cv.bfloat16()
+        if dtype == 'bfloat16':
+            q = q.bfloat16()
+    k, v = ck[:, :S], cv[:, :S]
+    assert not k.is_contiguous()
+    before = tops.launch_counts()['flash_attention']
+    out = tops.flash_attention_bshd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tops.launch_counts()['flash_attention'] == before + 1
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert out.is_contiguous()
+    ref = tfa.flash_attention_bshd_plain(q, k, v, causal=causal)
+    _flash_check(out, ref, q.dtype)
+
+
+@pytest.mark.parametrize('causal', [True, False])
+@pytest.mark.parametrize('d', [16, 128])
+def test_flash_attention_kernel_keeps_the_low_mantissa_bits(cuda, d, causal):
+    """Inputs whose 13 low mantissa bits (the ones TF32 drops) are all set:
+    a split that loses them, or plain TF32, misses 2e-5 here."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    q, k, v = (torch.randn((4, 256, d), device=cuda, generator=gen) * 2
+               for _ in range(3))
+    q, k, v = ((t.view(torch.int32) | 0x1fff).view(torch.float32)
+               for t in (q, k, v))
+    out = tfa.flash_attention_kernel(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    ref = tfa.flash_attention_plain(q, k, v, causal=causal)
+    assert (out - ref).abs().max().item() <= 2e-5
+
+
+def test_flash_attention_bshd_kernel_checks_its_inputs(cuda):
+    q = torch.randn((2, 8, 4, 64), device=cuda)
+    k = torch.randn((2, 8, 3, 64), device=cuda)
+    with pytest.raises(ValueError, match='H % G'):
+        tfa.flash_attention_bshd_kernel(q, k, k)
+    k = torch.randn((2, 8, 2, 64), device=cuda)
+    with pytest.raises(ValueError, match='bad shapes'):
+        tfa.flash_attention_bshd_kernel(q, k[:1], k[:1])
+    with pytest.raises(ValueError, match='head dim'):
+        tfa.flash_attention_bshd_kernel(q[..., :48], k[..., :48], k[..., :48])
+    with pytest.raises(ValueError, match='contiguous'):
+        kt = torch.randn((2, 8, 64, 2), device=cuda).transpose(2, 3)
+        tfa.flash_attention_bshd_kernel(q, kt, kt)
+    with pytest.raises(ValueError, match='multiples of 8'):
+        kp = torch.randn((2, 8, 2, 68), device=cuda)[..., :64]
+        tfa.flash_attention_bshd_kernel(q, kp, kp)
+    with pytest.raises(ValueError, match='dtypes'):
+        tfa.flash_attention_bshd_kernel(q.bfloat16(), k, k)
