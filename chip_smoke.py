@@ -32,14 +32,32 @@ Phases, each printing its own lines:
    16, 128) against a slice of a (4, 1001, 8, 128) cache), and the W8A8
    kernel at the LM's projection shapes (``torch._int_mm`` refuses M <=
    16, so at the decode step it is timed on M padded to 32 rows);
+   3b. prng: the threefry generator (``core/prng``) on the card against
+   the CPU: bits equal bit for bit at an odd 1-D shape and at 1360 x
+   1360, normals within its stated tolerance; the time of one 1360 x
+   1360 normal draw;
 4. small width: serve a guided fp32, an unguided fp32 and a w8a8 request
    of a tiny SD-shaped model through the engine on the card and on the
-   CPU from the same seeds, and compare the images;
+   CPU from the same seeds, and compare the images; 4b. the same for a
+   w8a8+noise request (identical noise keys on both), a DeepCache request
+   (cadence ``CACHE_INTERVAL``) and an early-exit request, with the same
+   eval tallies, exits and energies;
 5. full width: serve 8 requests (fp32 and w8a8, guided at 7.5 and not,
    10 DDIM steps) of SD v1.4 + the 512x512 VAE with random weights from
    seed 0 through the engine on 4 slots, check every image, and check
    with the kernels' launch counters that the diffusion path ran through
    its two kernels, as many times as its UNet evaluations require;
+   5b. the serving features at full width: 8 more requests through an
+   engine with DeepCache (``CACHE_INTERVAL``) and early exit
+   (``EXIT_TOL``): fp32, w8a8 and w8a8+noise, cached and opted out,
+   guided and not.  It checks every image, every energy against
+   ``PhotonicAccountant.energy_evals`` of the request's own tallies, that
+   a request exits early, that every step call launched each kernel as
+   its plan requires (per evaluation of its kind, measured on the same
+   model) and that skip steps launch no W8A8 kernel; it prints wall,
+   req/s, p50, peak memory, PSNR by kind against the fp32 probe, the
+   walls of a w8a8, a noisy, a refresh and a skip step over 4 slots, and
+   the share of the noisy step its noise draws take;
 6. LM small width: the smoke InternLM2 (head dim 16, GQA rep 2) from one
    seed on the card and on the CPU, a prefill and 8 decode steps at fp32
    and at w8a8, logits compared step by step;
@@ -62,7 +80,7 @@ phase 3, weighted by launches per evaluation); for ``flash_attention``
 they are one prefill's worth (24 launches at the path shape), with
 ``passes`` (TF32 products per float32 product) and ``bound_f32_ms``
 (the float32 CUDA-core bound) beside them.
-``launches`` is each kernel's count over the runs of phases 5 and 7.
+``launches`` is each kernel's count over the runs of phases 5, 5b and 7.
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, and the run then exits non-zero with no result; so does a run
 without CUDA or without the repository beside this file.
@@ -117,6 +135,17 @@ LM_SMALL_W8A8_ATOL = 1e-2
 # bound is relative to that logit
 LM_FULL_FP32_ATOL = 1e-3
 LM_FULL_W8A8_RTOL = 0.1
+
+# serving features at full width: the shared DeepCache cadence and the
+# engine's early-exit tolerance (one request asks for a looser one, so at
+# least one exit happens whatever the random weights' x0 movement is)
+CACHE_INTERVAL = 3
+EXIT_TOL = 0.05
+LOOSE_EXIT_TOL = 10.0
+# the small serving-features check: DeepCache and early exit on the card
+# and the CPU take the same decisions (exact tallies); the noisy request's
+# draws agree to prng's normal tolerance, the rest as the W8A8 check
+FEATURES_SEEDS = (20, 21, 22)
 
 LM_ARCH = 'internlm2-1.8b'
 LM_BATCH, LM_PROMPT, LM_TOKENS = 4, 1000, 32
@@ -684,6 +713,305 @@ def phase_full(torch, numpy, ops, pipe, context, per_eval, card):
     return launches
 
 
+def phase_prng(torch):
+    """Phase 3b: ``core/prng`` on the card against the CPU: bits equal
+    bit for bit at an odd 1-D shape and at the largest projection weight
+    (1360 x 1360), normals within ``prng``'s stated tolerance; and the
+    time of one 1360 x 1360 normal draw."""
+    from repro_torch.core import prng
+    key = prng.fold_in(prng.fold_in(prng.PRNGKey(5), 17), 981)
+    shape = (1360, 1360)
+    for sh in ((100_003,), shape):
+        a = prng.random_bits(key, sh, device='cuda').cpu()
+        b = prng.random_bits(key, sh, device='cpu')
+        check(torch.equal(a, b), f'prng bits {sh}: card != CPU')
+        na = prng.normal(key, sh, device='cuda').cpu()
+        nb = prng.normal(key, sh, device='cpu')
+        over = ((na - nb).abs() - prng.NORMAL_RTOL * nb.abs()).max().item()
+        exact = (na == nb).float().mean().item()
+        print(f'[prng] {sh}: bits card == CPU; normals max abs err '
+              f'{(na - nb).abs().max().item():.3e}, {exact:.4f} bit-equal')
+        check(over <= prng.NORMAL_ATOL, f'prng normals {sh}: card vs CPU '
+              f'beyond rtol {prng.NORMAL_RTOL} + atol {prng.NORMAL_ATOL}')
+    n = shape[0] * shape[1]
+    bits_ms = time_ms(torch,
+                      lambda: prng.random_bits(key, shape, device='cuda'),
+                      reps=5, calls=5)
+    normal_ms = time_ms(torch,
+                        lambda: prng.normal(key, shape, device='cuda'),
+                        reps=5, calls=5)
+    print(f'[prng] one {shape} draw on the card: bits {bits_ms:.3f} ms, '
+          f'normal {normal_ms:.3f} ms ({n / normal_ms / 1e6:.2f} G draws/s)')
+    return normal_ms
+
+
+def phase_small_features(torch, numpy):
+    """Phase 4b: a w8a8+noise request, a DeepCache request (the engine's
+    cadence ``CACHE_INTERVAL``) and an early-exit request of the tiny model
+    through one engine on the card and on the CPU, with the same images,
+    eval tallies, exits and energies."""
+    from repro_torch.diffusion.pipeline import DiffusionPipeline
+    from repro_torch.models.autoencoder import VAEConfig
+    from repro_torch.models.unet import UNetConfig
+    from repro_torch.serving import ContinuousBatchingEngine, GenerationRequest
+    cfg = UNetConfig('tiny-sd', img_size=8, in_ch=4, base_ch=32,
+                     ch_mults=(1, 2), n_res_blocks=1, attn_resolutions=(8, 4),
+                     n_heads=4, context_dim=16, timesteps=16, latent=True)
+    vae = VAEConfig(img_size=16, in_ch=3, z_ch=4, base_ch=16,
+                    ch_mults=(1, 2), groups=8)
+    cpu = DiffusionPipeline.init(1, cfg, vae, device='cpu')
+    ctx = torch.randn((1, 5, 16), generator=torch.Generator().manual_seed(2))
+    ctx = ctx.repeat(3, 1, 1)
+    s0, s1, s2 = FEATURES_SEEDS
+    reqs = [GenerationRequest(0, seed=s0, steps=6, precision='w8a8+noise',
+                              cache_interval=1),
+            GenerationRequest(1, seed=s1, steps=6, guidance=GUIDANCE),
+            GenerationRequest(2, seed=s2, steps=6, cache_interval=1,
+                              exit_tol=LOOSE_EXIT_TOL)]
+    out = {}
+    for dev, pipe in (('cuda', cpu.to('cuda')), ('cpu', cpu)):
+        out[dev] = serve(ContinuousBatchingEngine(
+            pipe, slots=3, context=ctx, cache_interval=CACHE_INTERVAL,
+            noise_seed=7, quality_probe=0), reqs)
+    for r in reqs:
+        a, b = out['cuda'][r.request_id], out['cpu'][r.request_id]
+        tally = (a.steps_executed, a.full_evals, a.cached_evals, a.early_exit)
+        check(tally == (b.steps_executed, b.full_evals, b.cached_evals,
+                        b.early_exit),
+              f'features request {r.request_id}: card tallies {tally} != CPU')
+        check(a.energy_j == b.energy_j > 0, f'features request '
+              f'{r.request_id}: energy {a.energy_j} vs {b.energy_j}')
+        check(a.image.shape == (16, 16, 3) and numpy.isfinite(a.image).all(),
+              f'features request {r.request_id}: bad image')
+        err = float(numpy.abs(a.image - b.image).max())
+        tol = W8A8_ATOL if r.precision != 'fp32' else FP32_ATOL
+        print(f'[small] features request {r.request_id} {r.precision} '
+              f'cache_interval {r.cache_interval} exit_tol {r.exit_tol}: '
+              f'steps {a.steps_executed}/{r.steps} (full {a.full_evals}, '
+              f'cached {a.cached_evals}, early exit {a.early_exit}), energy '
+              f'{a.energy_j:.6e} J; card vs CPU max abs err {err:.3e} '
+              f'(tol {tol})')
+        check(err <= tol, f'features request {r.request_id}: card vs CPU '
+              f'{err} > {tol}')
+    check(out['cpu'][1].cached_evals > 0 and out['cpu'][2].early_exit,
+          'small features: no cached tick or no early exit')
+
+
+def pass_launches(ops, pipe, context):
+    """Launches of each path kernel per UNet evaluation of every kind the
+    serving-features engine runs: {(kind, conditional): {kernel: n}} for
+    kind 'full' (also a DeepCache refresh) and 'skip', under w8a8 (a noisy
+    or fp32 evaluation launches no W8A8 kernel)."""
+    import torch
+    from repro_torch.diffusion.deepcache import unet_apply_cached
+    cfg = pipe.unet_cfg
+    x = torch.randn((SLOTS, cfg.img_size, cfg.img_size, cfg.in_ch),
+                    device='cuda')
+    t = torch.full((SLOTS,), 500, device='cuda')
+    out = {}
+    with torch.no_grad():
+        _, cache = unet_apply_cached(pipe.unet, cfg, x, t, None, True,
+                                     context, 'w8a8')
+        for kind in ('full', 'skip'):
+            for cond in (True, False):
+                seen = record_shapes(ops, lambda: unet_apply_cached(
+                    pipe.unet, cfg, x, t, cache, kind == 'full',
+                    context if cond else None, 'w8a8'))
+                out[(kind, cond)] = {k: sum(v.values())
+                                     for k, v in seen.items()}
+    return out
+
+
+def time_wall(torch, fn, reps: int = 3) -> float:
+    """Median host wall (ms) of ``fn`` between two device syncs."""
+    times = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[1:])
+
+
+def phase_full_features(torch, numpy, ops, pipe, context, card, normal_ms):
+    """Phase 5b: the serving features at full width: 8 requests through an
+    engine with DeepCache (``CACHE_INTERVAL``) and early exit
+    (``EXIT_TOL``) on 4 slots; fp32, w8a8 and w8a8+noise, cached and opted
+    out, guided and not.  Returns the run's launch counts."""
+    from repro_torch.core import prng
+    from repro_torch.serving import ContinuousBatchingEngine, GenerationRequest
+    per_pass = pass_launches(ops, pipe, context)
+    print(f'[features] launches per UNet evaluation under w8a8 by (kind, '
+          f'conditional): {per_pass}')
+    check(per_pass[('skip', True)]['w8a8_matmul'] == 0
+          and per_pass[('skip', False)]['w8a8_matmul'] == 0,
+          'an SD v1.4 skip pass should launch no W8A8 kernel (no attention '
+          'at the full resolution)')
+    engine = ContinuousBatchingEngine(
+        pipe, slots=SLOTS, context=context, cache_interval=CACHE_INTERVAL,
+        exit_tol=EXIT_TOL, quality_probe=1)
+    warm = engine.warmup(precisions=('w8a8+noise',))
+    print(f'[features] warmup {warm:.2f} s (noisy refresh and skip steps)')
+    # (precision, cache_interval, guidance, exit_tol): fp32, w8a8 and
+    # w8a8+noise; cached (engine cadence) and opted out (1); guided and
+    # not; early exit at the engine's tolerance, off (0) or loose
+    mix = [('fp32', None, GUIDANCE, 0.0), ('w8a8', None, 0.0, None),
+           ('w8a8+noise', 1, 0.0, 0.0), ('fp32', 1, 0.0, LOOSE_EXIT_TOL),
+           ('w8a8+noise', None, GUIDANCE, 0.0), ('w8a8', 1, GUIDANCE, None),
+           ('fp32', None, 0.0, None), ('w8a8+noise', None, 0.0, None)]
+    reqs = [GenerationRequest(i, seed=200 + i, steps=STEPS, guidance=g,
+                              precision=p, cache_interval=c, exit_tol=e)
+            for i, (p, c, g, e) in enumerate(mix)]
+    calls = []
+
+    def recorded(fn, refresh_of):
+        def wrapped(pol, guided, *args):
+            before = ops.launch_counts()
+            out = fn(pol, guided, *args)
+            after = ops.launch_counts()
+            calls.append((pol.name, guided, refresh_of(args),
+                          {k: after[k] - before[k] for k in after}))
+            return out
+        return wrapped
+
+    engine._step = recorded(engine._step, lambda a: True)
+    engine._cached_step = recorded(engine._cached_step, lambda a: a[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()                  # the features run starts here
+    t0 = time.perf_counter()
+    results = serve(engine, reqs)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()        # ... and ends here
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del engine._step, engine._cached_step
+    check(sorted(results) == list(range(len(reqs))),
+          f'completed {sorted(results)} of {len(reqs)} requests')
+    acc = engine.photonic
+    for r in reqs:
+        res = results[r.request_id]
+        check(res.image.shape == (512, 512, 3)
+              and numpy.isfinite(res.image).all(),
+              f'request {r.request_id}: image not a finite 512x512x3')
+        want = acc.energy_evals(res.full_evals, res.cached_evals,
+                                r.guidance > 0, precision=r.precision)
+        check(res.energy_j > 0 and (res.energy_j, res.epb_pj) == want,
+              f'request {r.request_id}: energy {res.energy_j} J, want '
+              f'{want[0]} from the accountant')
+        check(res.steps_executed == res.full_evals + res.cached_evals,
+              f'request {r.request_id}: tallies do not add up')
+    check(any(res.early_exit and res.steps_executed < res.steps
+              for res in results.values()), 'no request exited early')
+    check(any(res.cached_evals > 0 for res in results.values()),
+          'no request took a DeepCache skip step')
+    # the plan's launches: per step call, per evaluation of its kind
+    want_total = collections.Counter()
+    for pname, guided, refresh, got in calls:
+        kind = 'full' if refresh else 'skip'
+        want = collections.Counter()
+        for cond in ((True, False) if guided else (True,)):
+            n = per_pass[(kind, cond)]
+            want['fused_gn_swish'] += n['fused_gn_swish']
+            if pname == 'w8a8':
+                want['w8a8_matmul'] += n['w8a8_matmul']
+        check(got['w8a8_matmul'] == want['w8a8_matmul']
+              and got['fused_gn_swish'] == want['fused_gn_swish'],
+              f'{pname} {kind} guided={guided}: launches {got}, plan '
+              f'{dict(want)}')
+        if not refresh:
+            check(got['w8a8_matmul'] == 0, 'a skip step launched W8A8')
+        want_total.update(want)
+    kinds = collections.Counter((p, g, 'refresh' if r else 'skip')
+                                for p, g, r, _ in calls)
+    print(f'[features] step calls by (precision, guided, kind): '
+          f'{dict(kinds)}; launches in the steps {dict(want_total)} as '
+          f'planned; the whole run (fp32 probes included) {launches}')
+    check(launches['fused_gn_swish'] >= want_total['fused_gn_swish'] > 0
+          and launches['w8a8_matmul'] == want_total['w8a8_matmul'] > 0,
+          'the features run did not go through both path kernels as planned')
+    snap = engine.metrics.snapshot()
+    print(f'[features] {card}: {len(reqs)} requests SD v1.4 + VAE 512 at '
+          f'{STEPS} steps on {SLOTS} slots, cache_interval {CACHE_INTERVAL}, '
+          f'exit_tol {EXIT_TOL}: wall {wall:.3f} s, '
+          f'{snap.requests_per_s:.4f} req/s, p50 latency '
+          f'{snap.p50_latency_s:.3f} s, {snap.ticks} ticks (cache hit rate '
+          f'{snap.cache_hit_rate:.3f}, mixed ticks {snap.mixed_ticks}, early '
+          f'exits {snap.early_exits}, steps saved {snap.steps_saved}), peak '
+          f'memory {peak:.2f} GiB')
+    by_kind = collections.defaultdict(list)
+    for r in reqs:
+        res = results[r.request_id]
+        print(f'[features] request {r.request_id} {r.precision} guidance '
+              f'{r.guidance} cache_interval {r.cache_interval} exit_tol '
+              f'{r.exit_tol}: steps {res.steps_executed}/{res.steps} (full '
+              f'{res.full_evals}, cached {res.cached_evals}, early exit '
+              f'{res.early_exit}), energy {res.energy_j:.6e} J, EPB '
+              f'{res.epb_pj:.6f} pJ, PSNR vs fp32 probe {res.quality_psnr_db}')
+        kind = (r.precision + (' cached' if res.cached_evals else '')
+                + (' early-exit' if res.early_exit else ''))
+        if res.quality_psnr_db is not None:
+            by_kind[kind].append(round(res.quality_psnr_db, 2))
+    print(f'[features] {card}: PSNR (dB) vs the fp32 full-step probe by '
+          f'kind: {dict(by_kind)}')
+
+    # the walls of one step of each kind over all 4 slots, unguided: a
+    # noisy full step against a w8a8 one, a DeepCache refresh against a
+    # skip; and the share of the noisy step its noise draws take
+    x_shape = engine.x.shape
+    engine.x = torch.randn(x_shape, device='cuda')
+    engine.x0 = torch.randn(x_shape, device='cuda')
+    ts = engine._trajectory(STEPS)
+    t_d = torch.full((SLOTS,), int(ts[1]), device='cuda')
+    tp_d = torch.full((SLOTS,), int(ts[2]), device='cuda')
+    m_d = torch.ones(SLOTS, dtype=torch.bool, device='cuda')
+    g_d = torch.zeros(SLOTS, device='cuda')
+    pw = engine._policy_for('w8a8')
+    pn = engine._policy_for('w8a8+noise')
+    key = engine._tick_key(pn, 0)
+    t0_ = int(ts[1])
+    walls = {
+        'w8a8 full': time_wall(torch, lambda: engine._step(
+            pw, False, t_d, tp_d, m_d, g_d, None, t0_)),
+        'w8a8+noise full': time_wall(torch, lambda: engine._step(
+            pn, False, t_d, tp_d, m_d, g_d, key, t0_)),
+        'w8a8 refresh': time_wall(torch, lambda: engine._cached_step(
+            pw, False, True, t_d, tp_d, m_d, g_d, None)),
+        'w8a8 skip': time_wall(torch, lambda: engine._cached_step(
+            pw, False, False, t_d, tp_d, m_d, g_d, None)),
+        'w8a8+noise skip': time_wall(torch, lambda: engine._cached_step(
+            pn, False, False, t_d, tp_d, m_d, g_d, key)),
+        'fp32 full': time_wall(torch, lambda: engine._step(
+            engine._policy_for('fp32'), False, t_d, tp_d, m_d, g_d, None,
+            t0_)),
+    }
+    draws = []
+    normal = prng.normal
+
+    def rec(k, shape, *, device):
+        draws.append(tuple(shape))
+        return normal(k, shape, device=device)
+
+    prng.normal = rec
+    try:
+        with torch.no_grad():
+            engine._step(pn, False, t_d, tp_d, m_d, g_d, key, t0_)
+    finally:
+        prng.normal = normal
+    n_draw = sum(math.prod(s) for s in draws)
+    draw_ms = time_wall(torch, lambda: [normal(key, s, device='cuda')
+                                        for s in draws])
+    print(f'[features] {card}: step walls over {SLOTS} slots, unguided '
+          '(ms): ' + json.dumps({k: round(v, 3) for k, v in walls.items()}))
+    print(f'[features] {card}: one noisy evaluation draws {len(draws)} '
+          f'normal tensors, {n_draw:,} values, in {draw_ms:.3f} ms alone: '
+          f'{draw_ms / walls["w8a8+noise full"]:.1%} of the noisy step '
+          f'(one 1360x1360 draw {normal_ms:.3f} ms)')
+    check(walls['w8a8 skip'] < walls['w8a8 refresh'],
+          'a skip step is not cheaper than a refresh step')
+    return launches
+
+
 def phase_lm_small(torch, numpy, ops):
     """Phase 6: the smoke InternLM2 on the card and on the CPU from one
     seed, a prefill and ``SMALL_LM_STEPS`` decode steps, both fed the
@@ -921,13 +1249,21 @@ def main() -> int:
     summary['flash_attention'] = phase_flash(torch, lm_cfg.n_layers, lm_cfg)
     phase_w8a8_lm(torch, lm_cfg)
 
+    normal_ms = phase_prng(torch)
+
     # phase 4: small width, card vs CPU
     phase_small(torch, numpy)
+    phase_small_features(torch, numpy)
 
     # phase 5: full width through the engine
     launches = collections.Counter(
         phase_full(torch, numpy, ops, pipe, context, per_eval, card))
     print(f'[full] diffusion path launches: {dict(launches)}')
+    feature_launches = phase_full_features(torch, numpy, ops, pipe, context,
+                                           card, normal_ms)
+    print(f'[features] serving-features run launches: '
+          f'{dict(feature_launches)}')
+    launches.update(feature_launches)
     del pipe, context
     torch.cuda.empty_cache()
 

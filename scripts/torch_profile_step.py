@@ -3,12 +3,17 @@
 port on one GPU.
 
     python3 scripts/torch_profile_step.py [--slots 4] [--ticks 3]
+    python3 scripts/torch_profile_step.py --features [--slots 4] [--ticks 3]
     python3 scripts/torch_profile_step.py --lm [--ticks 3]
 
 Diffusion (the default): builds Stable Diffusion v1.4 at full width with
 random weights from seed 0 (no VAE: decode is not part of a denoise
 tick), fills every slot of a ``ContinuousBatchingEngine`` with requests
 of one (precision, guidance) mix, and profiles ``--ticks`` steady ticks.
+``--features``: the same model and slots, unguided: ``--ticks`` ticks
+of ``w8a8+noise`` requests (a noisy full step each), then a DeepCache
+engine (cadence 3) of w8a8 requests, one refresh tick and two skip
+ticks.
 ``--lm``: builds InternLM2-1.8B with random weights from seed 0 and
 profiles, at fp32 and w8a8, one prefill of ``serve_lm``'s traffic (batch
 4, a 1000-token prompt, float32 activations and cache) and ``--ticks``
@@ -115,12 +120,41 @@ def profile_lm(torch, card: str, decode_steps: int) -> None:
                       f' {card}', run_decode, decode_steps)
 
 
+def profile_features(torch, pipe, ctx, card: str, args) -> None:
+    """Noisy full ticks; then a DeepCache refresh tick and two skip ticks
+    (w8a8, cadence 3), every slot busy and unguided."""
+    from repro_torch.serving import ContinuousBatchingEngine, GenerationRequest
+
+    def filled(precision, **kw):
+        engine = ContinuousBatchingEngine(pipe, slots=args.slots, context=ctx,
+                                          quality_probe=0, **kw)
+        for i in range(args.slots):
+            engine.submit(GenerationRequest(i, seed=i, steps=args.ticks + 6,
+                                            precision=precision))
+        return engine
+
+    engine = filled('w8a8+noise')
+    engine.tick()                          # admission + a warm tick
+    engine.tick()
+    profile_steps(torch, f'w8a8+noise, guidance 0.0, {card}, {args.slots} '
+                  'slots, tick', engine.tick, args.ticks)
+    engine = filled('w8a8', cache_interval=3)
+    for _ in range(3):                     # refresh, skip, skip (warm)
+        engine.tick()
+    profile_steps(torch, f'w8a8 DeepCache refresh, guidance 0.0, {card}, '
+                  f'{args.slots} slots, tick', engine.tick, 1)
+    profile_steps(torch, f'w8a8 DeepCache skip, guidance 0.0, {card}, '
+                  f'{args.slots} slots, tick', engine.tick, 2)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--slots', type=int, default=4)
     ap.add_argument('--ticks', type=int, default=3)
     ap.add_argument('--lm', action='store_true',
                     help='profile InternLM2-1.8B prefill and decode')
+    ap.add_argument('--features', action='store_true',
+                    help='profile noisy, DeepCache refresh and skip ticks')
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -143,6 +177,9 @@ def main() -> int:
     pipe = DiffusionPipeline.init(0, SD_V1_4, device='cuda')
     ctx = torch.randn((args.slots, 77, SD_V1_4.context_dim),
                       generator=torch.Generator().manual_seed(1)).cuda()
+    if args.features:
+        profile_features(torch, pipe, ctx, card, args)
+        return 0
     for precision in ('fp32', 'w8a8'):
         for guidance in (0.0, 7.5):
             engine = ContinuousBatchingEngine(pipe, slots=args.slots,

@@ -3,14 +3,18 @@
 Port of ``repro/core/precision.py``.  ``PrecisionPolicy.fp32()`` is the
 digital baseline, ``w8a8()`` the DiffLight W8A8 path (C1: per-output-
 channel weight scales, dynamic per-row activation scales) and
-``w8a8_noise()`` adds the analog perturbation model.  The noisy policy
-can be constructed and named here, but no matmul executes it yet: it
-needs a generator that reproduces the reference's threefry draws.
+``w8a8_noise()`` adds the analog perturbation model of
+``core/photonic/noise.py``.  ``NoiseKeyStream`` / ``stream_for`` hand
+each noisy matmul its own key (``core/prng``), so a whole network draws
+the reference's noise under the same key.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Union
+
+from repro_torch.core import prng
+from repro_torch.core.photonic.noise import NoiseModel
 
 #: request-level precision names accepted by the serving engine
 PRECISION_NAMES = ('fp32', 'w8a8', 'w8a8+noise')
@@ -18,16 +22,6 @@ PRECISION_NAMES = ('fp32', 'w8a8', 'w8a8+noise')
 #: 'dynamic': weights quantized at each call; 'prequant': weights stored
 #: as QTensors at build time (activations are dynamic either way)
 CALIBRATIONS = ('dynamic', 'prequant')
-
-
-@dataclasses.dataclass(frozen=True)
-class NoiseModel:
-    """Analog perturbations in LSBs of the 8-bit datapath (copy of
-    ``repro/core/photonic/noise.py::NoiseModel``)."""
-    sigma_w_lsb: float = 0.3     # MR calibration + thermal drift (weights)
-    sigma_x_lsb: float = 0.2     # activation modulation error
-    sigma_pd_lsb: float = 0.5    # BPD / shot noise on the accumulated sum
-    crosstalk_db_per_channel: float = -28.0   # adjacent-channel isolation
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,3 +90,34 @@ def resolve(policy: Union[PrecisionPolicy, str, None] = None
     if isinstance(policy, str):
         return PrecisionPolicy.from_name(policy)
     return policy
+
+
+class NoiseKeyStream:
+    """Key dispenser for analog-noise injection: each noisy matmul call
+    site gets ``fold_in(base, i)`` with a counter that advances per call,
+    so every layer draws independent noise while the whole network stays
+    deterministic under a fixed base key.  A stream built from ``None``
+    dispenses ``None`` (no noise), so callers never branch."""
+
+    def __init__(self, base_key: Optional[prng.Key]):
+        self._base = base_key
+        self._i = 0
+
+    def next(self) -> Optional[prng.Key]:
+        if self._base is None:
+            return None
+        k = prng.fold_in(self._base, self._i)
+        self._i += 1
+        return k
+
+
+def stream_for(policy: PrecisionPolicy,
+               noise_key: Optional[prng.Key] = None) -> NoiseKeyStream:
+    """The noise-key stream an apply function dispenses from: the
+    caller's key when given, else the policy's seed anchor, else an inert
+    stream for noise-free policies."""
+    if not policy.noisy:
+        return NoiseKeyStream(None)
+    if noise_key is None:
+        noise_key = prng.PRNGKey(policy.noise_seed)
+    return NoiseKeyStream(noise_key)

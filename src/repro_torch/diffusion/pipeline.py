@@ -4,9 +4,12 @@ noise -> DDIM denoising with the UNet -> VAE decode for latent models.
 The pipeline carries a default ``PrecisionPolicy`` and every entry point
 takes a per-call ``policy=`` override, so one pipeline serves requests at
 different precisions.  Weights live on ``device`` (the GPU unless the
-caller asks for the CPU).  A request's initial noise is drawn from a CPU
-``torch.Generator`` seeded with its seed and then moved to the device, so
-the image a seed gives does not depend on the device that serves it.
+caller asks for the CPU).  A request's initial noise is the reference's
+(``normal(split(PRNGKey(seed))[0], shape)``, ``core/prng``), drawn on the
+CPU and moved to the device, so the image a seed gives does not depend
+on the device that serves it.  Under a noisy policy every UNet
+evaluation draws its analog noise from a key that folds in the first
+row's timestep and the guidance branch, as the reference's does.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from typing import Optional, Sequence, Union
 
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.precision import PrecisionPolicy, resolve
 from repro_torch.diffusion import samplers
 from repro_torch.diffusion.schedule import Schedule, linear_schedule
@@ -37,10 +41,11 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
 
 def initial_noise(seed: int, shape: Sequence[int],
                   device: Union[str, torch.device]) -> torch.Tensor:
-    """Standard-normal noise from a CPU generator seeded with ``seed``,
+    """The reference's initial noise for ``seed`` (``ddim_sample``'s
+    ``normal(split(PRNGKey(seed))[0], shape)``), drawn on the CPU and
     moved to ``device``."""
-    gen = torch.Generator().manual_seed(int(seed))
-    return torch.randn(tuple(shape), generator=gen).to(device)
+    k0, _ = prng.split(prng.PRNGKey(seed))
+    return prng.normal(k0, tuple(shape), device='cpu').to(device)
 
 
 @dataclasses.dataclass
@@ -102,16 +107,34 @@ class DiffusionPipeline:
             self, unet=unet,
             policy=dataclasses.replace(pol, calibration='prequant'))
 
-    def _eps_fn(self, context=None, guidance: float = 0.0, policy=None):
+    def _eps_fn(self, context=None, guidance: float = 0.0, policy=None,
+                noise_key: Optional[prng.Key] = None):
         """Noise-prediction closure at a given precision, with
         classifier-free guidance when ``guidance > 0`` and a context is
-        given: ``e_unc + guidance * (e_cond - e_unc)``."""
+        given: ``e_unc + guidance * (e_cond - e_unc)``.  Under a noisy
+        policy the evaluation's key is ``fold_in(fold_in(base, t[0]),
+        branch)`` (branch 0 conditional, 1 unconditional), ``base`` being
+        ``noise_key`` or the policy's seed anchor.  ``eps(x, t, t_first)``
+        takes ``t[0]`` from a caller that holds it on the host, which
+        spares the device sync of reading it."""
         pol = resolve(policy) if policy is not None else self.policy
+        base = None
+        if pol.noisy:
+            base = noise_key if noise_key is not None else \
+                prng.PRNGKey(pol.noise_seed)
 
-        def eps(x, t):
-            e = self.unet(x, t, context, pol)
+        def keyed(t0, branch):
+            if base is None:
+                return None
+            return prng.fold_in(prng.fold_in(base, t0), branch)
+
+        def eps(x, t, t_first: Optional[int] = None):
+            t0 = None
+            if base is not None:
+                t0 = int(t.reshape(-1)[0]) if t_first is None else t_first
+            e = self.unet(x, t, context, pol, keyed(t0, 0))
             if guidance > 0.0 and context is not None:
-                e_unc = self.unet(x, t, None, pol)
+                e_unc = self.unet(x, t, None, pol, keyed(t0, 1))
                 e = e_unc + guidance * (e - e_unc)
             return e
         return eps
@@ -122,12 +145,14 @@ class DiffusionPipeline:
 
     @torch.no_grad()
     def denoise_step(self, x: torch.Tensor, t, t_prev, context=None,
-                     guidance: float = 0.0, policy=None) -> torch.Tensor:
+                     guidance: float = 0.0, policy=None,
+                     noise_key: Optional[prng.Key] = None) -> torch.Tensor:
         """One mixed-timestep DDIM step; ``t`` / ``t_prev`` are per-sample
-        (B,) vectors or scalars."""
+        (B,) vectors or scalars.  ``noise_key`` re-anchors a noisy
+        policy's draws (the engine threads a per-tick key)."""
         tt = torch.as_tensor(t, dtype=torch.long, device=x.device).expand(
             x.shape[0])
-        eps = self._eps_fn(context, guidance, policy)(x, tt)
+        eps = self._eps_fn(context, guidance, policy, noise_key)(x, tt)
         return samplers.ddim_step(self.sched, eps, x, t, t_prev)
 
     @torch.no_grad()

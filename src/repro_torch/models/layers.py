@@ -23,6 +23,7 @@ from typing import Optional, Union
 import torch
 import torch.nn as nn
 
+from repro_torch.core import prng
 from repro_torch.core.precision import PrecisionPolicy, resolve
 from repro_torch.core.quantization import QTensor, quantize_per_channel
 from repro_torch.core.sparse_dataflow import (conv_nhwc,
@@ -32,17 +33,23 @@ from repro_torch.core.sparse_dataflow import (conv_nhwc,
 
 def linear(x: torch.Tensor, w: Union[torch.Tensor, QTensor],
            b: Optional[torch.Tensor] = None,
-           policy: Union[PrecisionPolicy, str, None] = None) -> torch.Tensor:
+           policy: Union[PrecisionPolicy, str, None] = None,
+           noise_key: Optional[prng.Key] = None) -> torch.Tensor:
     """y = x @ w + b under the precision policy: fp32, or W8A8 (DiffLight
-    C1) when the policy is quantized or ``w`` is a pre-quantized QTensor."""
+    C1) when the policy is quantized or ``w`` is a pre-quantized QTensor,
+    or W8A8 with analog noise drawn from ``noise_key`` (falling back to
+    the policy's ``noise_seed`` anchor) when the policy is noisy."""
     pol = resolve(policy)
     if pol.quantized or isinstance(w, QTensor):
         if pol.noisy:
-            raise NotImplementedError(
-                'w8a8+noise needs a threefry-compatible noise generator, '
-                'which a later slice of the port adds')
-        from repro_torch.kernels import ops
-        y = ops.w8a8_matmul(x, w).to(x.dtype)
+            from repro_torch.core.photonic.noise import noisy_w8a8_matmul
+            key = noise_key if noise_key is not None else \
+                prng.PRNGKey(pol.noise_seed)
+            y = noisy_w8a8_matmul(key, x, w, model=pol.noise,
+                                  n_channels=pol.n_channels).to(x.dtype)
+        else:
+            from repro_torch.kernels import ops
+            y = ops.w8a8_matmul(x, w).to(x.dtype)
     else:
         y = x @ w.to(x.dtype)
     if b is not None:
@@ -206,8 +213,8 @@ class Linear(nn.Module):
         del self.w
         self.w = QWeight(qt)
 
-    def forward(self, x, policy=None):
-        return linear(x, self.weight, self.b, policy)
+    def forward(self, x, policy=None, noise_key=None):
+        return linear(x, self.weight, self.b, policy, noise_key)
 
 
 class Conv(nn.Module):

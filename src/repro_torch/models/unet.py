@@ -5,8 +5,10 @@ ResBlocks run GroupNorm+swish through the fused kernel (C5); attention
 blocks use the LSE softmax (C2) with optional cross-attention; stride-2
 upsampling goes through the sparse transposed-conv dataflow (C4).  A
 w8a8 ``PrecisionPolicy`` runs every attention projection on the W8A8
-path (C1).  ``UNet.state_dict()`` keys are the reference pytree's key
-paths (``down.1.blocks.0.attn.wq.w``).
+path (C1); a noisy one (``w8a8+noise``) draws one independent analog
+perturbation per projection from a ``NoiseKeyStream``, in the
+reference's order.  ``UNet.state_dict()`` keys are the reference
+pytree's key paths (``down.1.blocks.0.attn.wq.w``).
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import torch
 import torch.nn as nn
 
 from repro_torch.core.lse_softmax import lse_softmax
-from repro_torch.core.precision import resolve
+from repro_torch.core.precision import resolve, stream_for
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
@@ -102,16 +104,26 @@ class AttnBlock(nn.Module):
             self.xv = L.Linear(context_dim, ch, bias=False, device=device)
             self.xo = L.Linear(ch, ch, device=device)
 
-    def forward(self, x, groups: int, context=None, policy=None):
+    def forward(self, x, groups: int, context=None, policy=None, keys=None):
+        """``keys``: a ``NoiseKeyStream`` dispensing one key per projection
+        (wq, wk, wv, wo, then xq, xk, xv, xo) under a noisy policy;
+        without one, a per-block stream anchored at the policy's seed."""
+        pol = resolve(policy)
+        if keys is None:
+            keys = stream_for(pol)
+
+        def proj(lin, v):
+            return lin(v, pol, keys.next())
+
         B, H, W, C = x.shape
         t = self.gn(x, groups).reshape(B, H * W, C)
-        o = _mha(self.wq(t, policy), self.wk(t, policy), self.wv(t, policy),
+        o = _mha(proj(self.wq, t), proj(self.wk, t), proj(self.wv, t),
                  self.n_heads)
-        t = t + self.wo(o, policy)
+        t = t + proj(self.wo, o)
         if context is not None and self.cross:
-            o = _mha(self.xq(t, policy), self.xk(context, policy),
-                     self.xv(context, policy), self.n_heads)
-            t = t + self.xo(o, policy)
+            o = _mha(proj(self.xq, t), proj(self.xk, context),
+                     proj(self.xv, context), self.n_heads)
+            t = t + proj(self.xo, o)
         return x + t.reshape(B, H, W, C)
 
 
@@ -193,43 +205,89 @@ class UNet(nn.Module):
         self.conv_out = L.Conv(3, 3, ch, cfg.in_ch, device=device)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor,
-                context: Optional[torch.Tensor] = None, policy=None):
+                context: Optional[torch.Tensor] = None, policy=None,
+                noise_key=None):
         """x (B, H, W, C_in) NHWC, t (B,) int timesteps -> predicted noise.
-        ``policy`` sets the precision of every attention projection."""
-        cfg, pol, g = self.cfg, resolve(policy), self.cfg.groups
-        t_emb = timestep_embedding(t, cfg.base_ch)
+        ``policy`` sets the precision of every attention projection; a
+        noisy one draws from ``noise_key`` (default: the policy's seed
+        anchor), so the forward is deterministic under a fixed key."""
+        pol = resolve(policy)
+        keys = stream_for(pol, noise_key)
+        h, skips, t_emb = self.shallow_in(x, t, context, pol, keys)
+        h = self.deep(h, t_emb, context, pol, keys)
+        return self.shallow_out(h, skips, t_emb, context, pol, keys)
+
+    # The forward in three parts, which DeepCache (``diffusion/deepcache``)
+    # runs apart: a skip pass replaces ``deep`` by its cached output.  The
+    # parts share one key stream, so a noisy policy's keys go out in the
+    # order the blocks run.
+
+    def shallow_in(self, x, t, context, pol, keys):
+        """Time embedding, ``conv_in`` and the outermost down level's
+        blocks.  Returns (h, the skips they leave for the last up level,
+        the time embedding)."""
+        g = self.cfg.groups
+        t_emb = timestep_embedding(t, self.cfg.base_ch)
         t_emb = self.t_mlp2(L.swish(self.t_mlp1(t_emb)))
         h = self.conv_in(x)
         skips = [h]
-        for lvl in self.down:
-            for b in lvl.blocks:
-                h = b.res(h, t_emb, g)
-                if b.attn is not None:
-                    h = b.attn(h, g, context, pol)
-                skips.append(h)
+        h = self._down_blocks(self.down[0], h, skips, t_emb, context, pol,
+                              keys)
+        return h, skips, t_emb
+
+    def deep(self, h, t_emb, context, pol, keys):
+        """From the outermost level's downsampling through the mid block
+        and every up level but the last: the activation that enters the
+        last up level (what DeepCache caches)."""
+        g = self.cfg.groups
+        skips = []
+        for i, lvl in enumerate(self.down):
+            if i > 0:       # the outermost level's blocks ran in shallow_in
+                h = self._down_blocks(lvl, h, skips, t_emb, context, pol,
+                                      keys)
             if hasattr(lvl, 'down'):
                 h = lvl.down(h, stride=2)
                 skips.append(h)
         h = self.mid.res1(h, t_emb, g)
-        h = self.mid.attn(h, g, context, pol)
+        h = self.mid.attn(h, g, context, pol, keys)
         h = self.mid.res2(h, t_emb, g)
-        for lvl in self.up:
-            for b in lvl.blocks:
-                h = torch.cat([h, skips.pop()], dim=-1)
-                h = b.res(h, t_emb, g)
-                if b.attn is not None:
-                    h = b.attn(h, g, context, pol)
-            if hasattr(lvl, 'upconv'):
-                h = L.conv_transpose2d(h, lvl.upconv.w, lvl.upconv.b, stride=2,
-                                       sparse_dataflow=cfg.sparse_dataflow)
+        for lvl in self.up[:-1]:
+            h = self._up_level(lvl, h, skips, t_emb, context, pol, keys)
+        return h
+
+    def shallow_out(self, h, skips, t_emb, context, pol, keys):
+        """The last up level on ``h`` and the skips of ``shallow_in``, then
+        ``gn_out`` and ``conv_out``: the predicted noise."""
+        h = self._up_level(self.up[-1], h, skips, t_emb, context, pol, keys)
         h = ops.fused_gn_swish(h, self.gn_out.scale, self.gn_out.bias,
-                               groups=g)
+                               groups=self.cfg.groups)
         return self.conv_out(h)
+
+    def _down_blocks(self, lvl, h, skips, t_emb, context, pol, keys):
+        g = self.cfg.groups
+        for b in lvl.blocks:
+            h = b.res(h, t_emb, g)
+            if b.attn is not None:
+                h = b.attn(h, g, context, pol, keys)
+            skips.append(h)
+        return h
+
+    def _up_level(self, lvl, h, skips, t_emb, context, pol, keys):
+        g = self.cfg.groups
+        for b in lvl.blocks:
+            h = torch.cat([h, skips.pop()], dim=-1)
+            h = b.res(h, t_emb, g)
+            if b.attn is not None:
+                h = b.attn(h, g, context, pol, keys)
+        if hasattr(lvl, 'upconv'):
+            h = L.conv_transpose2d(h, lvl.upconv.w, lvl.upconv.b, stride=2,
+                                   sparse_dataflow=self.cfg.sparse_dataflow)
+        return h
 
 
 def unet_apply(unet: UNet, x: torch.Tensor, t: torch.Tensor,
                context: Optional[torch.Tensor] = None,
-               policy=None) -> torch.Tensor:
+               policy=None, noise_key=None) -> torch.Tensor:
     """Functional spelling of ``UNet.forward`` (the reference's
     ``unet_apply`` entry point)."""
-    return unet(x, t, context, policy)
+    return unet(x, t, context, policy, noise_key)

@@ -1,25 +1,29 @@
 """Continuous-batching diffusion serving on one GPU with per-request
-precision selection (port of ``repro/serving``)::
+precision selection, DeepCache phasing, early exit and photonic energy
+accounting (port of ``repro/serving``)::
 
     pipe = DiffusionPipeline.init(0, SD_V1_4, VAE_512)        # on the GPU
-    engine = ContinuousBatchingEngine(pipe, slots=4, context=ctx)
-    engine.warmup(precisions=('fp32', 'w8a8'))    # builds the kernels
+    engine = ContinuousBatchingEngine(pipe, slots=4, context=ctx,
+                                      cache_interval=3, exit_tol=0.01)
+    engine.warmup(precisions=('fp32', 'w8a8', 'w8a8+noise'))
     engine.submit(GenerationRequest(request_id=0, seed=42, steps=50,
-                                    precision='w8a8'))
+                                    precision='w8a8+noise'))
     while engine.busy:
         for result in engine.tick():
-            ...  # result.image, result.quality_psnr_db
+            ...  # result.image, result.energy_j, result.quality_psnr_db
 """
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.serving.api import GenerationRequest, GenerationResult
-from repro_torch.serving.batcher import group_by_precision, plan_tick
+from repro_torch.serving.batcher import (group_by_precision, plan_tick,
+                                         split_cache_phase)
 from repro_torch.serving.engine import ContinuousBatchingEngine
 from repro_torch.serving.metrics import (FrontierPoint, MetricsSnapshot,
-                                         ServingMetrics)
+                                         PhotonicAccountant, ServingMetrics)
 from repro_torch.serving.queue import SHED_POLICIES, AdmissionQueue
 
 __all__ = [
     'GenerationRequest', 'GenerationResult', 'ContinuousBatchingEngine',
     'AdmissionQueue', 'SHED_POLICIES', 'ServingMetrics', 'MetricsSnapshot',
-    'PrecisionPolicy', 'FrontierPoint', 'group_by_precision', 'plan_tick',
+    'PrecisionPolicy', 'PhotonicAccountant', 'FrontierPoint',
+    'group_by_precision', 'plan_tick', 'split_cache_phase',
 ]

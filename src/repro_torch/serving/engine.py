@@ -4,32 +4,52 @@
 The engine owns a fixed ``(slots, H, W, C)`` latent buffer.  Each slot
 carries one in-flight request at its own DDIM step index: every denoise
 step is one UNet call with a per-sample timestep vector, so requests at
-different depths share it.  Each request also carries its own precision.
-Per tick:
+different depths share it.  Each request also carries its own precision
+(``fp32``, ``w8a8`` or ``w8a8+noise``).  Per tick:
 
   1. free slots are refilled from the admission queue (a request's
-     initial noise comes from its own seed, exactly as
+     initial noise is the reference's for its seed, exactly as
      ``DiffusionPipeline.generate`` draws it);
   2. occupied slots are grouped by precision (``batcher.plan_tick``) and
      ONE masked mixed-timestep step per group advances that group's
      slots; the other slots pass through unchanged.  A group with a
      guided slot evaluates the UNet twice (conditional and
-     unconditional) and blends per slot;
+     unconditional) and blends per slot.  A ``w8a8+noise`` group draws
+     its analog noise from the tick's key, ``fold_in(PRNGKey(seed),
+     tick)`` (``core/prng``), its unconditional pass from
+     ``fold_in(key, 1)``, so a serving run is deterministic under
+     (noise seed, request sequence) and draws the reference's noise;
   3. slots at the end of their trajectory drain through the VAE decode
-     and are immediately refillable.  Sampled quantized requests also run
-     an fp32 reference generation for the same seed and report PSNR/MSE
-     against it.
+     and are immediately refillable, with policy-aware photonic energy
+     (``PhotonicAccountant.energy_evals``).  Sampled quantized, cached
+     or early-exited requests also run an fp32 full-step reference
+     generation for the same seed and report PSNR/MSE against it.
+
+Two schedulers make the per-tick cost dynamic:
+
+  * **DeepCache-phased slots** (``cache_interval > 1``): slot-axis
+    feature-cache buffers (``_cache_c``, and ``_cache_u`` for the
+    unconditional branch under guidance) hold the activation entering
+    the last up level.  A refresh entry of the plan runs the full UNet
+    and rewrites the cache rows of the slots it ran; a skip entry runs
+    the shallow pass and splices them in.  All cache-enabled slots share
+    one refresh cadence: admission holds queued requests until the next
+    refresh tick, and the cadence re-anchors when no cached slot is
+    active.  Skip ticks are billed at the shallow fraction of a full
+    UNet tick.
+  * **Speculative early exit** (``exit_tol``): every step also yields
+    the x0 prediction; a slot whose relative x0 movement stays under
+    ``exit_tol`` for ``exit_patience`` consecutive ticks (after
+    ``EXIT_MIN_STEPS`` executed steps) drains early and commits its x0.
 
 With eta = 0 DDIM is deterministic given the initial noise, and the UNet
 and the per-row w8a8 activation scales treat batch rows independently,
-so a request served here matches ``DiffusionPipeline.generate(seed,
-batch=1, ...)`` on its own.
+so an uncached request served here matches ``DiffusionPipeline.generate
+(seed, batch=1, ...)`` on its own.
 
-The engine runs eagerly (no graph capture).  Not in this slice of the
-port: DeepCache refresh/skip phases and early exit, the ``w8a8+noise``
-policy, photonic energy accounting (results report ``energy_j = epb_pj =
-0``), tracing, and mesh sharding; a request asking for one of the first
-two is refused at ``submit``.
+The engine runs eagerly (no graph capture) on one device; mesh
+sharding, decode overlap, elastic resize, tracing and ``replay`` are
+not ported.
 """
 from __future__ import annotations
 
@@ -41,23 +61,36 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.diffusion import samplers
+from repro_torch.diffusion.deepcache import unet_apply_cached
 from repro_torch.diffusion.pipeline import DiffusionPipeline, initial_noise
 from repro_torch.serving.api import GenerationRequest, GenerationResult
 from repro_torch.serving.batcher import plan_tick
-from repro_torch.serving.metrics import ServingMetrics
+from repro_torch.serving.metrics import PhotonicAccountant, ServingMetrics
 from repro_torch.serving.queue import AdmissionQueue
+
+#: no early exit before this many executed steps: the x0-convergence
+#: signal needs two x0 predictions
+EXIT_MIN_STEPS = 2
 
 
 @dataclasses.dataclass
 class _Active:
-    """One occupied slot: the request and its trajectory cursor."""
+    """One occupied slot: the request, its trajectory cursor and the
+    scheduler state (resolved cache/early-exit knobs, eval counters)."""
     request: GenerationRequest
     ts: np.ndarray               # this request's DDIM timestep trajectory
     i: int                       # next step index into `ts`
     submit_time: float
     start_time: float
+    cache_on: bool = False       # rides the shared refresh cadence
+    exit_tol: float = 0.0        # <= 0: early exit disabled
+    exit_patience: int = 2
+    full_evals: int = 0          # full-UNet ticks consumed so far
+    cached_evals: int = 0        # shallow (skip) ticks consumed so far
+    exit_streak: int = 0         # consecutive ticks under exit_tol
 
 
 class ContinuousBatchingEngine:
@@ -69,13 +102,27 @@ class ContinuousBatchingEngine:
                  context: Optional[torch.Tensor] = None,
                  queue: Optional[AdmissionQueue] = None,
                  metrics: Optional[ServingMetrics] = None,
-                 quality_probe: int = 1):
+                 noise_seed: int = 0,
+                 quality_probe: int = 1,
+                 cache_interval: int = 1,
+                 exit_tol: Optional[float] = None,
+                 exit_patience: int = 2):
         """``context``: the ``(slots, T, context_dim)`` conditioning the
         conditional branch attends to (None: unconditional model).
+        ``noise_seed``: the ``w8a8+noise`` policy's seed (its noise model
+        is the paper's).  Every result is priced by a
+        ``PhotonicAccountant`` for the pipeline's UNet.
         ``quality_probe``: run the fp32 reference + PSNR/MSE probe for
-        every k-th completed quantized request (0 disables it)."""
+        every k-th completed quantized, cached or early-exited request (0
+        disables it).  ``cache_interval``: the shared DeepCache refresh
+        cadence, a full pass every ``cache_interval`` ticks (1: caching
+        off).  ``exit_tol`` / ``exit_patience``: engine-wide early-exit
+        defaults, which requests override per field (``exit_tol=None``
+        leaves early exit off)."""
         if slots < 1:
             raise ValueError('need at least one slot')
+        if cache_interval < 1:
+            raise ValueError('cache_interval must be >= 1')
         self._created = time.perf_counter()   # time-to-first-tick origin
         self.pipe = pipe
         self.device = pipe.device
@@ -86,29 +133,46 @@ class ContinuousBatchingEngine:
         self.metrics = metrics if metrics is not None else ServingMetrics()
         self._user_on_shed = self.queue.on_shed
         self.queue.on_shed = self._queue_shed
+        self.photonic = PhotonicAccountant(pipe.unet_cfg)
+        self.noise_seed = noise_seed
         self.quality_probe = quality_probe
+        self.cache_interval = cache_interval
+        self.exit_tol = exit_tol
+        self.exit_patience = exit_patience
         cfg = pipe.unet_cfg
         self._sample_shape = (cfg.img_size, cfg.img_size, cfg.in_ch)
         self.x = torch.zeros((slots,) + self._sample_shape, device=self.device)
         # previous-tick x0 predictions and the per-slot relative x0
-        # movement of the last step: the convergence signal early exit
-        # will read
+        # movement of the last step: the early-exit convergence signal
         self.x0 = torch.zeros_like(self.x)
         self.delta = torch.zeros(slots, device=self.device)
         self._slot: List[Optional[_Active]] = [None] * slots
         self._traj: Dict[int, np.ndarray] = {}
         self._policies: Dict[str, PrecisionPolicy] = {}
         self._probe_done = 0
+        self._phase = 0              # shared refresh cadence position
+        # slot-axis DeepCache buffers: the activation entering the last up
+        # level (full resolution, the second level's channels), one row
+        # per slot; the unconditional branch's apart under guidance
+        self._cache_c = self._cache_u = None
+        if cache_interval > 1:
+            ch = cfg.base_ch * cfg.ch_mults[min(1, len(cfg.ch_mults) - 1)]
+            row = (slots, cfg.img_size, cfg.img_size, ch)
+            self._cache_c = torch.zeros(row, device=self.device)
+            if self.context is not None:
+                self._cache_u = torch.zeros(row, device=self.device)
 
     # -- precision machinery ------------------------------------------------
     def _policy_for(self, name: str) -> PrecisionPolicy:
         if name not in self._policies:
             if name == 'fp32':
                 pol = PrecisionPolicy.fp32()
-            else:
+            elif name == 'w8a8':
                 cal = self.pipe.policy.calibration \
                     if self.pipe.policy.quantized else 'dynamic'
                 pol = PrecisionPolicy.w8a8(calibration=cal)
+            else:  # 'w8a8+noise' (the request validated the name)
+                pol = PrecisionPolicy.w8a8_noise(noise_seed=self.noise_seed)
             self._policies[name] = pol
         return self._policies[name]
 
@@ -128,19 +192,62 @@ class ContinuousBatchingEngine:
         return (torch.where(mask, x_new, x), torch.where(mask, x0_new, x0p),
                 delta)
 
+    @staticmethod
+    def _guide(eps_c, eps_u, guidance):
+        """Per-slot classifier-free guidance, only where guidance > 0."""
+        g = guidance.reshape((-1,) + (1,) * (eps_c.ndim - 1))
+        return torch.where(g > 0, eps_u + g * (eps_c - eps_u), eps_c)
+
     def _step(self, pol: PrecisionPolicy, guided: bool, t, t_prev, active,
-              guidance):
+              guidance, key, t_first: int):
         """One masked mixed-timestep step of every slot in ``active``.
         Guided: per-slot classifier-free guidance against the
-        unconditional eps, only for slots with guidance > 0."""
-        unet, x = self.pipe.unet, self.x
-        eps = unet(x, t, self.context, pol)
+        unconditional eps, only for slots with guidance > 0.  ``key``:
+        the tick's noise key (None unless the policy is noisy);
+        ``t_first``: slot 0's timestep, which a noisy evaluation's key
+        folds in."""
+        pipe, x = self.pipe, self.x
+        eps = pipe._eps_fn(self.context, 0.0, pol, key)(x, t, t_first)
         if guided:
-            eps_u = unet(x, t, None, pol)
-            g = guidance.reshape((-1,) + (1,) * (x.ndim - 1))
-            eps = torch.where(g > 0, eps_u + g * (eps - eps_u), eps)
-        return self._finish_step(self.pipe.sched, eps, x, self.x0, t, t_prev,
+            ukey = None if key is None else prng.fold_in(key, 1)
+            eps_u = pipe._eps_fn(None, 0.0, pol, ukey)(x, t, t_first)
+            eps = self._guide(eps, eps_u, guidance)
+        return self._finish_step(pipe.sched, eps, x, self.x0, t, t_prev,
                                  active)
+
+    def _cached_step(self, pol: PrecisionPolicy, guided: bool, refresh: bool,
+                     t, t_prev, active, guidance, key):
+        """DeepCache-phased step: ``refresh`` runs the full pass and
+        rewrites the cache rows of the slots in ``active``; a skip step
+        runs the shallow pass on the cached rows and leaves the buffers
+        as they are.  The noisy key goes to the UNet as it is."""
+        pipe, x = self.pipe, self.x
+        cfg = pipe.unet_cfg
+        eps, new_c = unet_apply_cached(pipe.unet, cfg, x, t, self._cache_c,
+                                       refresh, self.context, pol,
+                                       noise_key=key)
+        if guided:
+            ukey = None if key is None else prng.fold_in(key, 1)
+            eps_u, new_u = unet_apply_cached(pipe.unet, cfg, x, t,
+                                             self._cache_u, refresh, None,
+                                             pol, noise_key=ukey)
+            eps = self._guide(eps, eps_u, guidance)
+        out = self._finish_step(pipe.sched, eps, x, self.x0, t, t_prev,
+                                active)
+        if refresh:
+            cm = active.reshape((-1,) + (1,) * (new_c.ndim - 1))
+            self._cache_c = torch.where(cm, new_c, self._cache_c)
+            if guided:
+                self._cache_u = torch.where(cm, new_u, self._cache_u)
+        return out
+
+    def _tick_key(self, pol: PrecisionPolicy,
+                  tick_idx: int) -> Optional[prng.Key]:
+        """Per-tick analog-noise key: the policy's seed anchor folded with
+        the tick index (None for a noise-free policy)."""
+        if not pol.noisy:
+            return None
+        return prng.fold_in(prng.PRNGKey(pol.noise_seed), tick_idx)
 
     # -- introspection -----------------------------------------------------
     @property
@@ -160,15 +267,6 @@ class ContinuousBatchingEngine:
     # -- request flow ------------------------------------------------------
     def submit(self, req: GenerationRequest,
                now: Optional[float] = None) -> bool:
-        if req.precision == 'w8a8+noise':
-            raise ValueError(
-                f'request {req.request_id}: precision w8a8+noise is not '
-                'served yet; it waits for the slice of the port that adds a '
-                'threefry-compatible noise generator')
-        if (req.cache_interval or 1) > 1 or (req.exit_tol or 0.0) > 0.0:
-            raise ValueError(
-                f'request {req.request_id}: DeepCache phasing and early exit '
-                'are not served yet; they wait for a later slice of the port')
         now = time.perf_counter() if now is None else now
         ok = self.queue.submit(req, now)
         if ok:
@@ -181,9 +279,22 @@ class ContinuousBatchingEngine:
             self._traj[steps] = samplers.ddim_timesteps(self.pipe.sched, steps)
         return self._traj[steps]
 
+    def _cached_active(self) -> int:
+        return sum(a is not None and a.cache_on for a in self._slot)
+
     def _admit(self, now: float) -> None:
         if self.queue.has_deadlines:
             self.queue.expire(now)     # a dead request never takes a slot
+        if self.cache_interval > 1:
+            if self._cached_active() == 0:
+                # nothing rides the cadence: re-anchor it, so an idle
+                # engine never delays admission
+                self._phase = 0
+            if self._phase != 0 and self.queue.peek() is not None:
+                # phase-aligned admission: hold queued requests until the
+                # next refresh tick, so every skip tick stays a whole-batch
+                # shallow pass
+                return
         for idx in range(self.slots):
             if self._slot[idx] is not None:
                 continue
@@ -191,9 +302,17 @@ class ContinuousBatchingEngine:
             if q is None:
                 return
             req = q.request
+            interval = self.cache_interval if req.cache_interval is None \
+                else req.cache_interval
+            tol = self.exit_tol if req.exit_tol is None else req.exit_tol
+            patience = self.exit_patience if req.exit_patience is None \
+                else req.exit_patience
             self._slot[idx] = _Active(
                 request=req, ts=self._trajectory(req.steps), i=0,
-                submit_time=q.enqueue_time, start_time=now)
+                submit_time=q.enqueue_time, start_time=now,
+                cache_on=self.cache_interval > 1 and interval > 1,
+                exit_tol=0.0 if tol is None else float(tol),
+                exit_patience=patience)
             noise = initial_noise(req.seed, (1,) + self._sample_shape,
                                   self.device)[0]
             self.x[idx] = noise
@@ -203,8 +322,8 @@ class ContinuousBatchingEngine:
 
     def _fp32_reference(self, req: GenerationRequest,
                         guided: bool) -> np.ndarray:
-        """fp32 generation for the same seed/steps/guidance: the quality
-        probe's reference image (context row 0 stands in for the
+        """fp32 full-step generation for the same seed/steps/guidance: the
+        quality probe's reference image (context row 0 stands in for the
         engine's conditioning)."""
         ctx = self.context[:1] if (guided and self.context is not None) \
             else None
@@ -223,24 +342,34 @@ class ContinuousBatchingEngine:
         psnr = math.inf if mse <= 0.0 else 10.0 * math.log10(rng * rng / mse)
         return mse, psnr
 
-    def _drain(self, idx: int, now: float,
-               wall_clock: bool) -> GenerationResult:
-        """Decode a finished slot, free it, and account the result."""
+    def _drain(self, idx: int, now: float, wall_clock: bool,
+               early: bool = False) -> GenerationResult:
+        """Decode a finished slot, free it, and account the result.  An
+        early-exit drain commits the converged x0 prediction instead of
+        the partly denoised latent."""
         a = self._slot[idx]
         req = a.request
         self._slot[idx] = None
-        # np.array copies: without a VAE the decode is a view of the slot
-        # buffer, which admission overwrites in place
-        image = np.array(self.pipe.decode(self.x[idx:idx + 1])[0].cpu())
+        z = (self.x0 if early else self.x)[idx:idx + 1]
+        # the copy: without a VAE the decode is a view of the slot buffer,
+        # which admission overwrites in place
+        image = self.pipe.decode(z)[0].cpu().numpy().copy()
         if wall_clock:
             # the device sync above makes this the time the image existed
             now = time.perf_counter()
         pol = self._policy_for(req.precision)
         guided = req.guidance > 0.0 and self.context is not None
+        # skip ticks are billed at the shallow fraction of a full tick; an
+        # early exit pays only for the ticks that ran
+        energy_j, epb = self.photonic.energy_evals(
+            a.full_evals, a.cached_evals, guided, precision=req.precision)
         mse = psnr = None
         # the probe runs after the latency stamp: it is measurement
-        # apparatus, not served work
-        if pol.quantized and self.quality_probe > 0:
+        # apparatus, not served work.  Cached or early-exited requests are
+        # probed at any precision: their distance from the full-step fp32
+        # image is what the saved work cost
+        reduced = early or a.cached_evals > 0
+        if (pol.quantized or reduced) and self.quality_probe > 0:
             if self._probe_done % self.quality_probe == 0:
                 mse, psnr = self._quality(
                     image, self._fp32_reference(req, guided))
@@ -248,58 +377,99 @@ class ContinuousBatchingEngine:
         res = GenerationResult(
             request_id=req.request_id, image=image, steps=req.steps,
             submit_time=a.submit_time, start_time=a.start_time,
-            finish_time=now, precision=req.precision, policy=pol,
+            finish_time=now, energy_j=energy_j, epb_pj=epb,
+            precision=req.precision, policy=pol,
             quality_psnr_db=psnr, quality_mse=mse, steps_executed=a.i,
-            full_evals=a.i, trace_id=req.effective_trace_id)
+            full_evals=a.full_evals, cached_evals=a.cached_evals,
+            early_exit=early, trace_id=req.effective_trace_id)
         self.metrics.record_complete(res, slo_ms=req.slo_ms)
         return res
 
     @torch.no_grad()
     def tick(self, now: Optional[float] = None,
              wall_clock: Optional[bool] = None) -> List[GenerationResult]:
-        """Admit -> one masked mixed-timestep step per precision group ->
-        drain finished slots.  ``wall_clock`` (default: ``now`` not given)
-        re-stamps each drained result after its device sync, so latencies
-        include the last step and the decode."""
+        """Admit (phase-aligned when caching) -> one masked mixed-timestep
+        step per (precision group, refresh|skip) entry of the plan ->
+        drain finished and converged slots.  ``wall_clock`` (default:
+        ``now`` not given) re-stamps each drained result after its device
+        sync, so latencies include the last step and the decode."""
         wall_clock = (now is None) if wall_clock is None else wall_clock
         now = time.perf_counter() if now is None else now
         self._admit(now)
         if self.active_count == 0:
             return []
+        caching = self.cache_interval > 1
+        refresh_tick = self._phase == 0
         t = np.zeros(self.slots, np.int64)
         t_prev = np.full(self.slots, -1, np.int64)
         guidance = np.zeros(self.slots, np.float32)
+        needs_refresh = np.ones(self.slots, bool)
+        track_exit = False
         for idx, a in enumerate(self._slot):
             if a is None:
                 continue
             t[idx] = a.ts[a.i]
             t_prev[idx] = a.ts[a.i + 1] if a.i + 1 < len(a.ts) else -1
             guidance[idx] = a.request.guidance
+            needs_refresh[idx] = (not a.cache_on) or a.i == 0 or refresh_tick
+            if a.exit_tol > 0.0 and a.i + 1 >= EXIT_MIN_STEPS:
+                track_exit = True
         plan = plan_tick([a.request.precision if a is not None else None
-                          for a in self._slot])
-        self.metrics.record_tick(self.active_count)
+                          for a in self._slot], needs_refresh, caching)
+        tick_idx = self.metrics.ticks
+        active = np.array([a is not None for a in self._slot])
+        self.metrics.record_tick(
+            int(active.sum()),
+            full_slots=int((active & needs_refresh).sum()),
+            cached_slots=int((active & ~needs_refresh).sum()))
+        had_cached = self._cached_active() > 0
         dev = self.device
         t_d = torch.from_numpy(t).to(dev)
         tp_d = torch.from_numpy(t_prev).to(dev)
-        for pname, m in plan:
+        for pname, refresh, m in plan:
+            pol = self._policy_for(pname)
             g = np.where(m, guidance, 0.0).astype(np.float32)
             guided = self.context is not None and bool(g.any())
+            key = self._tick_key(pol, tick_idx)
             m_d = torch.from_numpy(m).to(dev)
-            self.x, self.x0, d = self._step(
-                self._policy_for(pname), guided, t_d, tp_d, m_d,
-                torch.from_numpy(g).to(dev))
+            g_d = torch.from_numpy(g).to(dev)
+            if caching:
+                self.x, self.x0, d = self._cached_step(
+                    pol, guided, refresh, t_d, tp_d, m_d, g_d, key)
+            else:
+                self.x, self.x0, d = self._step(
+                    pol, guided, t_d, tp_d, m_d, g_d, key, int(t[0]))
             self.delta = torch.where(m_d, d, self.delta)
         if self.metrics.first_tick_s is None:
             if dev.type == 'cuda':
                 torch.cuda.synchronize(dev)
             self.metrics.record_first_tick(time.perf_counter() - self._created)
+        # the x0-convergence deltas reach the host (one small sync) only
+        # when some slot may exit this tick
+        deltas = self.delta.cpu().numpy() if track_exit else None
         done: List[GenerationResult] = []
         for idx, a in enumerate(self._slot):
             if a is None:
                 continue
+            if needs_refresh[idx]:
+                a.full_evals += 1
+            else:
+                a.cached_evals += 1
             a.i += 1
+            finished = early = False
             if a.i >= len(a.ts):
-                done.append(self._drain(idx, now, wall_clock))
+                finished = True
+            elif a.exit_tol > 0.0 and a.i >= EXIT_MIN_STEPS:
+                if deltas[idx] < a.exit_tol:
+                    a.exit_streak += 1
+                else:
+                    a.exit_streak = 0
+                if a.exit_streak >= a.exit_patience:
+                    finished = early = True
+            if finished:
+                done.append(self._drain(idx, now, wall_clock, early=early))
+        if caching and had_cached:
+            self._phase = (self._phase + 1) % self.cache_interval
         return done
 
     def run_until_idle(self, now: Optional[float] = None,
@@ -317,21 +487,23 @@ class ContinuousBatchingEngine:
         raise RuntimeError(f'engine still busy after {max_ticks} ticks')
 
     def warmup(self, precisions=('fp32',)) -> float:
-        """Run one throwaway one-step request per precision (and a guided
-        one when the engine holds a context), so the kernels are built
-        and loaded and every step variant has run before serving.
-        Returns wall seconds, also recorded in the metrics."""
+        """Run throwaway requests per precision (and a guided one when the
+        engine holds a context), so the kernels are built and loaded and
+        every step variant has run before serving; with caching on, each
+        long enough to cross a refresh boundary (a refresh and a skip
+        step).  Returns wall seconds, also recorded in the metrics."""
         t0 = time.perf_counter()
         saved = self.queue, self.metrics, self.quality_probe
         self.queue, self.metrics = AdmissionQueue(), ServingMetrics()
         self.quality_probe = 0          # no fp32 references for throwaways
+        steps = 1 if self.cache_interval <= 1 else self.cache_interval + 1
         try:
             for i, pname in enumerate(precisions):
                 for j, g in enumerate((0.0, 7.5) if self.context is not None
                                       else (0.0,)):
                     self.submit(GenerationRequest(
-                        request_id=-(2 * i + j + 1), seed=0, steps=1,
-                        guidance=g, precision=pname), now=0.0)
+                        request_id=-(2 * i + j + 1), seed=0, steps=steps,
+                        guidance=g, exit_tol=0.0, precision=pname), now=0.0)
                     self.run_until_idle(now=0.0)
         finally:
             self.queue, self.metrics, self.quality_probe = saved

@@ -1,11 +1,21 @@
-"""Serving metrics and the accuracy-vs-EPB frontier, port of
-``repro/serving/metrics.py`` without the photonic accountant (it needs
-the photonic workload model, which a later slice ports; until then every
-result reports ``energy_j = epb_pj = 0``).
+"""Serving metrics, per-request photonic energy and the accuracy-vs-EPB
+frontier, port of ``repro/serving/metrics.py``.
+
+``PhotonicAccountant`` scales the UNet's per-step operation counts
+(``core/photonic/workload.py``) by the UNet evaluations a request
+consumed (its DDIM steps, doubled under classifier-free guidance; a
+DeepCache skip pass billed at ``shallow_fraction`` of a full one) and
+runs them through ``simulator.simulate``, so every completed request
+reports the Joules DiffLight would have spent on it and the energy per
+bit.  ``w8a8`` and ``w8a8+noise`` requests ride the analog MR banks (the
+simulated numbers); ``fp32`` requests are billed the paper's Fig. 10 GPU
+digital baseline (EPB at 94.18x DiffLight's, 32-bit operands).
 
 ``ServingMetrics`` keeps the queue/latency ledger (p50/p95/p99 latency,
 p50/p99 queue wait, requests/s, tick counters, SLO violations, sheds by
-cause, peak queue depth, warmup and time-to-first-tick) plus one
+cause, peak queue depth, warmup and time-to-first-tick), the DeepCache
+and early-exit counters (full and cached slot-steps, cache hit rate,
+mixed ticks, early exits, steps saved) and the frontier: one
 ``FrontierPoint`` per completed request and per-policy aggregates.
 """
 from __future__ import annotations
@@ -16,6 +26,83 @@ import math
 from typing import Dict, List, Optional
 
 from repro_torch.serving.api import GenerationResult
+
+#: Fig. 10 anchor: DiffLight's average EPB improvement over the GPU
+#: (RTX 4070) digital baseline, what an fp32 request is billed per bit
+FP32_DIGITAL_EPB_X = 94.18
+#: fp32 operands carry 4x the bits of the 8-bit analog datapath
+FP32_BITS_X = 4.0
+
+
+class PhotonicAccountant:
+    """Per-request energy: workload counts x simulate(), per precision."""
+
+    def __init__(self, unet_cfg, arch_cfg=None, ctx_len: Optional[int] = 77):
+        from repro_torch.core.photonic.arch import PAPER_OPTIMUM
+        from repro_torch.core.photonic.workload import unet_workload
+        self.arch_cfg = arch_cfg or PAPER_OPTIMUM
+        self.unet_cfg = unet_cfg
+        self._per_step = unet_workload(
+            unet_cfg, ctx_len=ctx_len if unet_cfg.context_dim else None)
+        self._cache: Dict[float, object] = {}
+        self._shallow_frac: Optional[float] = None
+
+    @property
+    def shallow_fraction(self) -> float:
+        """MAC fraction of a DeepCache skip pass vs a full UNet pass: the
+        workload transform a skip tick is billed through."""
+        if self._shallow_frac is None:
+            from repro_torch.diffusion.deepcache import \
+                shallow_workload_fraction
+            self._shallow_frac = shallow_workload_fraction(self.unet_cfg)
+        return self._shallow_frac
+
+    def _report_factor(self, factor: float):
+        from repro_torch.core.photonic.simulator import simulate
+        key = round(float(factor), 9)
+        if key not in self._cache:
+            self._cache[key] = simulate(
+                self._per_step.scale(factor), self.arch_cfg,
+                name=f'{self._per_step.name}/x{key:g}')
+        return self._cache[key]
+
+    def report(self, steps: int, guided: bool = False):
+        """SimReport for one request: ``steps`` UNet evaluations (2x when
+        classifier-free guidance runs the conditional and unconditional
+        pass per step)."""
+        return self._report_factor(steps * (2 if guided else 1))
+
+    def report_evals(self, full_evals: int, cached_evals: int = 0,
+                     guided: bool = False):
+        """SimReport for a DeepCache-phased request: ``full_evals`` full
+        UNet passes plus ``cached_evals`` skip passes, each billed at
+        ``shallow_fraction`` of a full pass, doubled under guidance."""
+        mult = 2 if guided else 1
+        factor = mult * (full_evals + cached_evals * self.shallow_fraction)
+        return self._report_factor(factor)
+
+    def energy(self, steps: int, guided: bool = False,
+               precision: str = 'w8a8'):
+        """(energy_j, epb_pj) for one request at the given precision:
+        quantized precisions take the DiffLight simulation unchanged (noise
+        injection is free: the analog datapath is the same); ``fp32``
+        scales EPB by the GPU digital anchor and energy by the anchor x 4
+        (32-bit vs 8-bit operands)."""
+        return self._price(self.report(steps, guided), precision)
+
+    def energy_evals(self, full_evals: int, cached_evals: int = 0,
+                     guided: bool = False, precision: str = 'w8a8'):
+        """(energy_j, epb_pj) for a request that consumed ``full_evals``
+        full ticks and ``cached_evals`` DeepCache skip ticks."""
+        return self._price(self.report_evals(full_evals, cached_evals,
+                                             guided), precision)
+
+    @staticmethod
+    def _price(rep, precision: str):
+        if precision == 'fp32':
+            return (rep.energy_j * FP32_DIGITAL_EPB_X * FP32_BITS_X,
+                    rep.epb_pj * FP32_DIGITAL_EPB_X)
+        return rep.energy_j, rep.epb_pj
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +137,15 @@ class MetricsSnapshot:
     max_queue_depth: int = 0
     warmup_s: float = 0.0
     first_tick_s: float = 0.0
+    # DeepCache / early-exit scheduler counters
+    full_steps: int = 0          # slot-steps run as full UNet passes
+    cached_steps: int = 0        # slot-steps run as shallow (skip) passes
+    cache_hit_rate: float = 0.0  # cached_steps / unet_steps
+    mixed_ticks: int = 0         # ticks paying both a full and a skip pass
+    early_exits: int = 0         # requests drained by x0 convergence
+    steps_saved: int = 0         # total requested-minus-executed steps
+    steps_saved_hist: Dict[int, int] = dataclasses.field(
+        default_factory=dict)
     frontier: Dict[str, Dict[str, float]] = dataclasses.field(
         default_factory=dict)
 
@@ -67,6 +163,12 @@ class ServingMetrics:
         self.max_queue_depth = 0
         self.warmup_s: Optional[float] = None
         self.first_tick_s: Optional[float] = None
+        self.full_steps = 0
+        self.cached_steps = 0
+        self.mixed_ticks = 0
+        self.early_exits = 0
+        self.steps_saved = 0
+        self.steps_saved_hist: Dict[int, int] = {}
         self.frontier_points: List[FrontierPoint] = []
         self._latencies: List[float] = []       # kept sorted
         self._queue_waits: List[float] = []     # kept sorted
@@ -100,9 +202,25 @@ class ServingMetrics:
         if self.first_tick_s is None:
             self.first_tick_s = seconds
 
-    def record_tick(self, active_slots: int):
+    def record_tick(self, active_slots: int,
+                    full_slots: Optional[int] = None,
+                    cached_slots: int = 0):
+        """``full_slots`` / ``cached_slots`` split the tick's slot-steps
+        into full-UNet and shallow DeepCache passes (default: all full);
+        a tick paying both is a ``mixed_tick``."""
         self.ticks += 1
         self.unet_steps += active_slots
+        if full_slots is None:
+            full_slots = active_slots
+        self.full_steps += full_slots
+        self.cached_steps += cached_slots
+        if full_slots > 0 and cached_slots > 0:
+            self.mixed_ticks += 1
+
+    @property
+    def cache_hit_rate(self) -> float:
+        """Fraction of executed slot-steps served by the shallow pass."""
+        return self.cached_steps / max(self.unet_steps, 1)
 
     def record_complete(self, res: GenerationResult,
                         slo_ms: Optional[float] = None):
@@ -114,16 +232,31 @@ class ServingMetrics:
             else max(self._last_finish, res.finish_time)
         if slo_ms is not None and res.latency_s * 1e3 > slo_ms:
             self.slo_violations += 1
+        executed = res.steps if res.steps_executed is None \
+            else res.steps_executed
+        saved = res.steps - executed
+        self.steps_saved += saved
+        self.steps_saved_hist[saved] = self.steps_saved_hist.get(saved, 0) + 1
+        if res.early_exit:
+            self.early_exits += 1
         self.frontier_points.append(FrontierPoint(
             request_id=res.request_id, precision=res.precision,
             epb_pj=res.epb_pj, energy_j=res.energy_j,
             psnr_db=res.quality_psnr_db, mse=res.quality_mse))
         d = self._by_policy.setdefault(res.precision, {
             'completed': 0.0, 'energy_j': 0.0, 'epb_sum': 0.0,
-            'probed': 0.0, 'psnr_sum': 0.0, 'mse_sum': 0.0})
+            'probed': 0.0, 'psnr_sum': 0.0, 'mse_sum': 0.0,
+            'steps_sum': 0.0, 'executed_sum': 0.0, 'saved_sum': 0.0,
+            'full_evals': 0.0, 'cached_evals': 0.0, 'early_exits': 0.0})
         d['completed'] += 1
         d['energy_j'] += res.energy_j
         d['epb_sum'] += res.epb_pj
+        d['steps_sum'] += res.steps
+        d['executed_sum'] += executed
+        d['saved_sum'] += saved
+        d['full_evals'] += res.full_evals
+        d['cached_evals'] += res.cached_evals
+        d['early_exits'] += bool(res.early_exit)
         if res.quality_mse is not None:
             d['probed'] += 1
             d['mse_sum'] += res.quality_mse
@@ -156,12 +289,16 @@ class ServingMetrics:
 
     def frontier(self) -> Dict[str, Dict[str, float]]:
         """Per-policy means over completed work: {precision: {completed,
-        probed, mean_epb_pj, mean_energy_j, mean_psnr_db, mean_mse}};
-        PSNR/MSE means run over probed requests only (NaN when none)."""
+        probed, mean_epb_pj, mean_energy_j, mean_psnr_db, mean_mse,
+        mean_steps_requested, mean_steps_executed, mean_steps_saved,
+        cache_hit_rate, early_exits}}; PSNR/MSE means run over probed
+        requests only (NaN when none); ``cache_hit_rate`` is the share of
+        this policy's evaluations served by the DeepCache skip pass."""
         out = {}
         for name, d in self._by_policy.items():
             n = max(d['completed'], 1.0)
             probed = d['probed']
+            evals = max(d['full_evals'] + d['cached_evals'], 1.0)
             out[name] = {
                 'completed': d['completed'],
                 'probed': probed,
@@ -171,6 +308,11 @@ class ServingMetrics:
                 else float('nan'),
                 'mean_mse': (d['mse_sum'] / probed) if probed
                 else float('nan'),
+                'mean_steps_requested': d['steps_sum'] / n,
+                'mean_steps_executed': d['executed_sum'] / n,
+                'mean_steps_saved': d['saved_sum'] / n,
+                'cache_hit_rate': d['cached_evals'] / evals,
+                'early_exits': d['early_exits'],
             }
         return out
 
@@ -193,4 +335,11 @@ class ServingMetrics:
             max_queue_depth=self.max_queue_depth,
             warmup_s=self.warmup_s or 0.0,
             first_tick_s=self.first_tick_s or 0.0,
+            full_steps=self.full_steps,
+            cached_steps=self.cached_steps,
+            cache_hit_rate=self.cache_hit_rate,
+            mixed_ticks=self.mixed_ticks,
+            early_exits=self.early_exits,
+            steps_saved=self.steps_saved,
+            steps_saved_hist=dict(self.steps_saved_hist),
             frontier=self.frontier())

@@ -16,6 +16,20 @@ PORT = ROOT / 'src' / 'repro_torch'
 SOURCES = sorted(str(p.relative_to(ROOT)) for p in PORT.rglob('*.py')) + [
     'chip_smoke.py', 'scripts/torch_profile_step.py']
 
+# the serving features' modules (threefry generator, photonic model,
+# DeepCache): the hygiene tests below must reach each of them
+SERVING_FEATURE_MODULES = [
+    'src/repro_torch/core/prng.py',
+    'src/repro_torch/core/photonic/__init__.py',
+    'src/repro_torch/core/photonic/devices.py',
+    'src/repro_torch/core/photonic/arch.py',
+    'src/repro_torch/core/photonic/workload.py',
+    'src/repro_torch/core/photonic/simulator.py',
+    'src/repro_torch/core/photonic/baselines.py',
+    'src/repro_torch/core/photonic/noise.py',
+    'src/repro_torch/diffusion/deepcache.py',
+]
+
 
 def _imported_modules(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
@@ -31,6 +45,13 @@ def test_source_never_imports_jax_or_the_reference(source):
     for mod in _imported_modules(ROOT / source):
         top = mod.split('.')[0]
         assert top not in ('jax', 'jaxlib', 'repro'), f'{source} imports {mod}'
+
+
+@pytest.mark.parametrize('source', SERVING_FEATURE_MODULES)
+def test_serving_feature_modules_are_covered(source):
+    assert source in SOURCES
+    mods = {m.split('.')[0] for m in _imported_modules(ROOT / source)}
+    assert not mods & {'jax', 'jaxlib', 'repro'}, source
 
 
 def test_every_module_imports_with_jax_and_repro_blocked():

@@ -1,6 +1,6 @@
 """Port layers vs the reference on the same numpy inputs: GroupNorm,
 convolutions (SAME padding, stride 2), the transposed-conv dataflows,
-``linear`` at fp32 and w8a8, the LSE softmax, the timestep embedding, the
+``linear`` at fp32, w8a8 and w8a8+noise, the LSE softmax, the timestep embedding, the
 schedule and the DDIM step.
 
 Tolerances: 1e-5 where both sides compute the same float32 arithmetic in
@@ -101,8 +101,27 @@ def test_linear_per_policy(policy):
 
 
 def test_linear_refuses_noisy_policy():
-    with pytest.raises(NotImplementedError, match='later slice'):
-        TL.linear(torch.ones(2, 4), torch.ones(4, 3), policy='w8a8+noise')
+    """A noise model needs the w8a8 backend: an fp32 policy carrying one is
+    refused.  On the w8a8 backend the noisy policy is served; without a
+    key it draws from the policy's seed anchor, as the reference's
+    ``linear`` does (the same noise; a float32 product summed in another
+    order, so 1e-5 of the largest output)."""
+    import jax
+    from repro.core.precision import PrecisionPolicy as JP
+    from repro_torch.core import prng
+    from repro_torch.core.photonic.noise import NoiseModel, noisy_w8a8_matmul
+    from repro_torch.core.precision import PrecisionPolicy as TP
+    with pytest.raises(ValueError, match='requires the w8a8 backend'):
+        TP(noise=NoiseModel())
+    x, w, b = _np((2, 7, 24), 12), _np((24, 16), 13), _np((16,), 14)
+    got = TL.linear(_t(x), _t(w), _t(b), policy='w8a8+noise')
+    want = noisy_w8a8_matmul(prng.PRNGKey(0), _t(x), _t(w)) + _t(b)
+    assert torch.equal(got, want)
+    with jax.threefry_partitionable(True):
+        ref = np.asarray(JL.linear({'w': jnp.asarray(w), 'b': jnp.asarray(b)},
+                                   jnp.asarray(x), policy=JP.w8a8_noise()))
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5 * np.abs(ref).max())
+    assert not torch.allclose(got, TL.linear(_t(x), _t(w), _t(b), 'w8a8'))
 
 
 def test_lse_softmax_and_timestep_embedding():

@@ -1,8 +1,9 @@
 """The port's serving engine against the port's standalone pipeline (the
 engine and ``DiffusionPipeline.generate`` draw a request's initial noise
 the same way, so a served request must equal its own batch-1 run), as
-the reference's ``tests/test_serving.py`` holds its engine; plus the
-requests this slice refuses and the host-side queue/batcher/metrics."""
+the reference's ``tests/test_serving.py`` holds its engine; the DeepCache
+and early-exit scheduler as the reference's ``tests/test_cache_serving.py``
+holds its own; plus the host-side queue/batcher/metrics."""
 import numpy as np
 import pytest
 import torch
@@ -11,8 +12,9 @@ from repro_torch.diffusion.pipeline import DiffusionPipeline
 from repro_torch.models.autoencoder import VAEConfig
 from repro_torch.models.unet import UNetConfig
 from repro_torch.serving import (AdmissionQueue, ContinuousBatchingEngine,
-                                 GenerationRequest, group_by_precision,
-                                 plan_tick)
+                                 GenerationRequest, PhotonicAccountant,
+                                 group_by_precision, plan_tick,
+                                 split_cache_phase)
 
 TINY = UNetConfig('tiny-serve', img_size=16, in_ch=3, base_ch=32,
                   ch_mults=(1, 2), n_res_blocks=1, attn_resolutions=(8,),
@@ -70,7 +72,9 @@ def test_mixed_timestep_equals_sequential_sampling(pipe):
     for r in results:
         ref = pipe.generate(100 + r.request_id, batch=1, steps=r.steps)
         np.testing.assert_allclose(r.image, ref[0].numpy(), atol=1e-5)
-        assert r.energy_j == 0.0 and r.epb_pj == 0.0   # no accountant yet
+        # priced by the photonic accountant: fp32 at the GPU anchor
+        want = PhotonicAccountant(TINY).energy(r.steps, precision='fp32')
+        assert (r.energy_j, r.epb_pj) == want and r.energy_j > 0
 
 
 def test_engine_guided_slots_match_pipeline_guidance():
@@ -147,16 +151,27 @@ def test_mixed_precision_ticks_group_by_precision(pipe):
         assert r.quality_psnr_db is None              # probe disabled
 
 
-@pytest.mark.parametrize('kwargs,match', [
-    ({'precision': 'w8a8+noise'}, 'threefry'),
-    ({'cache_interval': 3}, 'DeepCache'),
-    ({'exit_tol': 0.01}, 'early exit'),
+@pytest.mark.parametrize('kwargs', [
+    {'precision': 'w8a8+noise'},
+    {'cache_interval': 3},
+    {'exit_tol': 0.5},
 ])
-def test_requests_this_slice_cannot_serve_are_refused(pipe, kwargs, match):
-    engine = ContinuousBatchingEngine(pipe, slots=1)
-    with pytest.raises(ValueError, match=match):
-        engine.submit(GenerationRequest(0, seed=0, steps=2, **kwargs))
-    assert not engine.busy and engine.metrics.submitted == 0
+def test_requests_of_every_kind_are_served(pipe, kwargs):
+    """Each request kind of the serving features (a noisy precision,
+    DeepCache participation, early exit) is admitted and completes, with
+    nonzero photonic energy."""
+    engine = ContinuousBatchingEngine(pipe, slots=1, cache_interval=3,
+                                      quality_probe=0)
+    assert engine.submit(GenerationRequest(0, seed=0, steps=4, **kwargs),
+                         now=0.0)
+    (r,) = engine.run_until_idle(now=0.0)
+    assert not engine.busy and engine.metrics.completed == 1
+    assert np.isfinite(r.image).all() and r.energy_j > 0
+    assert r.steps_executed == r.full_evals + r.cached_evals
+    if 'exit_tol' in kwargs:
+        assert r.early_exit and r.steps_executed < 4
+    if 'cache_interval' in kwargs:
+        assert (r.full_evals, r.cached_evals) == (2, 2)
 
 
 def test_entry_points_default_to_the_gpu(monkeypatch):
@@ -185,7 +200,175 @@ def test_plan_tick_orders_precision_groups():
     groups = group_by_precision(precisions)
     assert sorted(groups) == ['fp32', 'w8a8']
     np.testing.assert_array_equal(groups['w8a8'], [True, False, False, True])
-    plan = plan_tick(precisions)
-    assert [name for name, _ in plan] == ['fp32', 'w8a8']
-    np.testing.assert_array_equal(plan[0][1], [False, False, True, False])
-    assert plan_tick([None, None]) == []
+    plan = plan_tick(precisions, np.ones(4, bool), caching=False)
+    assert [(name, refresh) for name, refresh, _ in plan] == [
+        ('fp32', True), ('w8a8', True)]
+    np.testing.assert_array_equal(plan[0][2], [False, False, True, False])
+    assert plan_tick([None, None], np.ones(2, bool), caching=False) == []
+    # with caching each group splits into its refresh and skip slots
+    plan = plan_tick(precisions, np.array([True, True, False, False]),
+                     caching=True)
+    assert [(name, refresh, m.tolist()) for name, refresh, m in plan] == [
+        ('fp32', False, [False, False, True, False]),
+        ('w8a8', True, [True, False, False, False]),
+        ('w8a8', False, [False, False, False, True])]
+
+
+def test_split_cache_phase():
+    r, s = split_cache_phase(np.array([True, True, False, True]),
+                             np.array([True, False, True, False]))
+    assert r.tolist() == [True, False, False, False]
+    assert s.tolist() == [False, True, False, True]
+
+
+# -- DeepCache phasing and early exit (the reference's
+#    tests/test_cache_serving.py, on the port's engine) --------------------
+
+def _req(i, steps=7, **kw):
+    return GenerationRequest(request_id=i, seed=100 + i, steps=steps, **kw)
+
+
+def test_cached_engine_follows_the_shared_cadence(pipe):
+    """Every skip tick is whole-batch (phase alignment) and per-request
+    eval counts follow the cadence: interval 3 from phase 0 refreshes at
+    ticks 0, 3, 6."""
+    eng = ContinuousBatchingEngine(pipe, slots=4, cache_interval=3,
+                                   quality_probe=0)
+    for i in range(4):
+        eng.submit(_req(i, steps=7), now=0.0)
+    results = eng.run_until_idle(now=0.0)
+    assert len(results) == 4
+    for r in results:
+        assert (r.full_evals, r.cached_evals, r.steps_executed) == (3, 4, 7)
+        assert not r.early_exit and np.isfinite(r.image).all()
+    snap = eng.metrics.snapshot()
+    assert snap.mixed_ticks == 0
+    assert (snap.full_steps, snap.cached_steps) == (12, 16)
+    assert snap.cache_hit_rate == pytest.approx(16 / 28)
+
+
+def test_opt_out_matches_plain_engine(pipe):
+    """A request opting out of caching (``cache_interval=1``) on a caching
+    engine takes only full passes and equals the plain engine's image."""
+    eng = ContinuousBatchingEngine(pipe, slots=2, cache_interval=3,
+                                   quality_probe=0)
+    eng.submit(_req(0, steps=5, cache_interval=1), now=0.0)
+    (r,) = eng.run_until_idle(now=0.0)
+    plain = ContinuousBatchingEngine(pipe, slots=2, quality_probe=0)
+    plain.submit(_req(0, steps=5), now=0.0)
+    (p,) = plain.run_until_idle(now=0.0)
+    assert (r.full_evals, r.cached_evals) == (5, 0)
+    np.testing.assert_array_equal(r.image, p.image)
+
+
+def test_phase_aligned_admission_mid_flight(pipe):
+    """A request arriving mid-cadence waits for the next refresh tick, and
+    the cadence re-anchors once no cached slot is active."""
+    eng = ContinuousBatchingEngine(pipe, slots=2, cache_interval=3,
+                                   quality_probe=0)
+    eng.submit(_req(0, steps=6), now=0.0)
+    eng.tick(now=0.0)                       # phase 0 -> 1
+    eng.submit(_req(1, steps=3), now=1.0)
+    eng.tick(now=1.0)                       # held: phase 1
+    assert eng.active_count == 1 and len(eng.queue) == 1
+    eng.tick(now=2.0)                       # held: phase 2
+    assert eng.active_count == 1
+    eng.tick(now=3.0)                       # phase 0: admitted
+    assert eng.active_count == 2
+    done = {r.request_id: r for r in eng.run_until_idle(now=4.0)}
+    assert (done[1].full_evals, done[1].cached_evals) == (1, 2)
+    assert eng.metrics.snapshot().mixed_ticks == 0
+    eng.submit(_req(2, steps=2), now=9.0)   # idle engine: re-anchored
+    eng.tick(now=9.0)
+    assert eng.active_count == 1
+
+
+def test_early_exit_drains_converged_slots(pipe):
+    """A loose tolerance drains a slot at ``EXIT_MIN_STEPS`` +
+    ``exit_patience`` - 1 steps with its x0 prediction; the freed slot is
+    refilled; steps saved and early exits are tallied."""
+    eng = ContinuousBatchingEngine(pipe, slots=1, exit_tol=10.0,
+                                   exit_patience=2, quality_probe=0)
+    eng.submit(_req(0, steps=8), now=0.0)
+    eng.submit(_req(1, steps=8, exit_tol=0.0), now=0.0)
+    done = {r.request_id: r for r in eng.run_until_idle(now=0.0)}
+    assert done[0].early_exit and done[0].steps_executed == 3
+    assert not done[1].early_exit and done[1].steps_executed == 8
+    snap = eng.metrics.snapshot()
+    assert snap.early_exits == 1 and snap.steps_saved == 5
+    assert snap.steps_saved_hist == {5: 1, 0: 1}
+    # the committed image is the x0 prediction, not the noisy latent
+    assert np.abs(done[0].image).max() < 10
+
+
+def test_exit_tol_zero_disables_early_exit(pipe):
+    eng = ContinuousBatchingEngine(pipe, slots=1, exit_tol=0.0,
+                                   quality_probe=0)
+    eng.submit(_req(0, steps=4), now=0.0)
+    (r,) = eng.run_until_idle(now=0.0)
+    assert not r.early_exit and r.steps_executed == 4
+
+
+def test_skip_ticks_billed_shallow(pipe):
+    """Energy follows the request's own full/cached tallies: a cached
+    request costs less than the same steps at full passes."""
+    acc = PhotonicAccountant(TINY)
+    eng = ContinuousBatchingEngine(pipe, slots=1, cache_interval=3,
+                                   quality_probe=0)
+    eng.submit(_req(0, steps=6, precision='w8a8'), now=0.0)
+    (r,) = eng.run_until_idle(now=0.0)
+    assert (r.full_evals, r.cached_evals) == (2, 4)
+    assert (r.energy_j, r.epb_pj) == acc.energy_evals(2, 4,
+                                                       precision='w8a8')
+    assert r.energy_j < acc.energy(6, precision='w8a8')[0]
+    assert 0 < acc.shallow_fraction < 1
+
+
+def test_probe_covers_cached_and_early_exited_requests(pipe):
+    """Cached or early-exited requests are probed against the full-step
+    fp32 image at any precision; a full-step fp32 request is not."""
+    eng = ContinuousBatchingEngine(pipe, slots=3, cache_interval=2)
+    eng.submit(_req(0, steps=4), now=0.0)
+    eng.submit(_req(1, steps=4, cache_interval=1, exit_tol=10.0), now=0.0)
+    eng.submit(_req(2, steps=4, cache_interval=1), now=0.0)
+    done = {r.request_id: r for r in eng.run_until_idle(now=0.0)}
+    assert done[0].cached_evals > 0 and done[0].quality_psnr_db is not None
+    assert done[1].early_exit and done[1].quality_psnr_db is not None
+    assert done[2].quality_psnr_db is None
+
+
+def test_frontier_reports_scheduler_columns(pipe):
+    eng = ContinuousBatchingEngine(pipe, slots=2, cache_interval=2,
+                                   quality_probe=0)
+    eng.submit(_req(0, steps=4, precision='w8a8+noise'), now=0.0)
+    eng.submit(_req(1, steps=4, precision='w8a8+noise', exit_tol=10.0),
+               now=0.0)
+    eng.run_until_idle(now=0.0)
+    f = eng.metrics.snapshot().frontier['w8a8+noise']
+    assert f['completed'] == 2 and f['early_exits'] == 1
+    assert f['mean_steps_requested'] == 4
+    assert f['mean_steps_executed'] == pytest.approx((4 + 3) / 2)
+    assert f['mean_steps_saved'] == pytest.approx(0.5)
+    assert 0 < f['cache_hit_rate'] < 1
+
+
+def test_noisy_requests_match_the_noisy_pipeline_step_by_step(pipe):
+    """A lone noisy request through the engine equals ``denoise_step``
+    driven with the engine's key chain: tick key ``fold_in(PRNGKey(seed),
+    tick)``, then the slot-0 timestep and branch 0 inside the step."""
+    from repro_torch.core import prng
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.diffusion import samplers
+    from repro_torch.diffusion.pipeline import initial_noise
+    eng = ContinuousBatchingEngine(pipe, slots=1, noise_seed=4,
+                                   quality_probe=0)
+    eng.submit(_req(0, steps=3, precision='w8a8+noise'), now=0.0)
+    (r,) = eng.run_until_idle(now=0.0)
+    pol = PrecisionPolicy.w8a8_noise(noise_seed=4)
+    ts = samplers.ddim_timesteps(pipe.sched, 3)
+    x = initial_noise(100, (1, 16, 16, 3), 'cpu')
+    for i, t in enumerate(ts):
+        t_prev = int(ts[i + 1]) if i + 1 < len(ts) else -1
+        x = pipe.denoise_step(x, int(t), t_prev, policy=pol,
+                              noise_key=prng.fold_in(prng.PRNGKey(4), i))
+    np.testing.assert_allclose(r.image, x[0].numpy(), atol=1e-3)

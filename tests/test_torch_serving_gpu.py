@@ -1,0 +1,78 @@
+"""The serving features on the card against the CPU: the threefry
+generator's bits (bit for bit) and normals (``prng.NORMAL_RTOL``), the
+noisy W8A8 matmul on one key (1e-5 of its largest output: the same draws,
+a float32 product summed in another order), and a tiny engine serving a
+noisy, a DeepCache and an early-exit request (the same tallies; images
+within the W8A8 tolerance, 1e-3).
+
+Imports neither ``jax`` nor the JAX package, so it runs on the GPU
+machine: ``python -m pytest -m gpu tests/test_torch_serving_gpu.py``.
+Every test skips where there is no CUDA device."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import prng
+from repro_torch.core.photonic.noise import noisy_w8a8_matmul
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    """The card, or a skip: decided when the test runs, never at import."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA GPU')
+    return torch.device('cuda')
+
+
+@pytest.mark.parametrize('shape', [(1,), (7,), (100_003,), (3, 5, 7),
+                                   (1360, 1360)])
+def test_prng_on_card_matches_cpu(cuda, shape):
+    key = prng.fold_in(prng.PRNGKey(11), 3)
+    assert torch.equal(prng.random_bits(key, shape, device=cuda).cpu(),
+                       prng.random_bits(key, shape, device='cpu'))
+    assert torch.equal(prng.uniform(key, shape, -2.0, 3.0, device=cuda).cpu(),
+                       prng.uniform(key, shape, -2.0, 3.0, device='cpu'))
+    torch.testing.assert_close(prng.normal(key, shape, device=cuda).cpu(),
+                               prng.normal(key, shape, device='cpu'),
+                               rtol=prng.NORMAL_RTOL, atol=prng.NORMAL_ATOL)
+
+
+@pytest.mark.parametrize('M,K,N', [(7, 40, 24), (4096, 680, 680)])
+def test_noisy_w8a8_on_card_matches_cpu(cuda, M, K, N):
+    g = torch.Generator().manual_seed(M)
+    x, w = torch.randn((M, K), generator=g), torch.randn((K, N), generator=g)
+    key = prng.PRNGKey(M)
+    want = noisy_w8a8_matmul(key, x, w)
+    got = noisy_w8a8_matmul(key, x.to(cuda), w.to(cuda)).cpu()
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())
+
+
+def test_engine_features_on_card_match_cpu(cuda):
+    from repro_torch.diffusion.pipeline import DiffusionPipeline
+    from repro_torch.models.unet import UNetConfig
+    from repro_torch.serving import ContinuousBatchingEngine, GenerationRequest
+    cfg = UNetConfig('tiny-sd', img_size=8, in_ch=4, base_ch=32,
+                     ch_mults=(1, 2), n_res_blocks=1, attn_resolutions=(8,),
+                     n_heads=4, context_dim=16, timesteps=16, latent=True)
+    cpu = DiffusionPipeline.init(1, cfg, device='cpu')
+    ctx = torch.randn((3, 5, 16), generator=torch.Generator().manual_seed(2))
+    reqs = [GenerationRequest(0, seed=5, steps=5, precision='w8a8+noise'),
+            GenerationRequest(1, seed=6, steps=5, guidance=2.0),
+            GenerationRequest(2, seed=7, steps=5, exit_tol=10.0)]
+    out = {}
+    for dev, pipe in (('cuda', cpu.to(cuda)), ('cpu', cpu)):
+        eng = ContinuousBatchingEngine(pipe, slots=3, context=ctx,
+                                       cache_interval=2, quality_probe=0)
+        for r in reqs:
+            eng.submit(r, now=0.0)
+        out[dev] = {r.request_id: r for r in eng.run_until_idle(now=0.0)}
+    for rid, a in out['cuda'].items():
+        b = out['cpu'][rid]
+        assert (a.full_evals, a.cached_evals, a.early_exit) == (
+            b.full_evals, b.cached_evals, b.early_exit)
+        assert a.energy_j == b.energy_j > 0
+        np.testing.assert_allclose(a.image, b.image, atol=1e-3)
+    assert out['cpu'][1].cached_evals > 0 and out['cpu'][2].early_exit
