@@ -41,7 +41,11 @@ Phases, each printing its own lines:
    CPU from the same seeds, and compare the images; 4b. the same for a
    w8a8+noise request (identical noise keys on both), a DeepCache request
    (cadence ``CACHE_INTERVAL``) and an early-exit request, with the same
-   eval tallies, exits and energies;
+   eval tallies, exits and energies; 4c. the serving CLI's function,
+   ``launch/serve.py::serve_diffusion``, on its 16-px toy model with 4
+   w8a8 requests all arriving at t=0, on the card with decode overlap
+   (a second CUDA stream) and on the CPU in order: the same images within
+   ``W8A8_ATOL``, tallies and energies;
 5. full width: serve 8 requests (fp32 and w8a8, guided at 7.5 and not,
    10 DDIM steps) of SD v1.4 + the 512x512 VAE with random weights from
    seed 0 through the engine on 4 slots, check every image, and check
@@ -70,7 +74,26 @@ Phases, each printing its own lines:
    a 1000-token prompt, 32 new tokens, float32) at fp32 and at w8a8,
    with the launch counters checked (24 flash launches per prefill, 120
    W8A8 launches per w8a8 forward), tokens in the vocabulary, and the
-   prefill seconds, decode tokens/s and peak memory printed.
+   prefill seconds, decode tokens/s and peak memory printed;
+8. serve: the serving CLI's path at full width, ``serve_diffusion`` on
+   SD v1.4 + VAE 512 (4 slots, w8a8, unguided over a random 77 x 768
+   context, no quality probe), a Poisson trace replayed on the wall
+   clock: (i) 8 requests at 4.0 req/s, 10 steps; (ii) the same with
+   decode overlap; (iii) run (ii) traced, writing the Chrome trace, the
+   JSONL log and the Prometheus text under ``build/serve-smoke`` (the
+   trace must reconcile with the metrics); (iv) 16 requests at 4 steps
+   offered at 5x the measured capacity against a queue of 2 x slots.
+   It prints req/s, p50, p95, makespan, energy per request, decodes
+   overlapped and peak memory for each run, and the traced rate beside
+   the untraced one; it checks only counts: every request of (i)-(iii)
+   completed with a finite 512x512x3 image, decodes overlapped in (ii)
+   and (iii), the images of (ii) within ``W8A8_ATOL`` of (i)'s, the
+   trace files agree with the run, completed + shed == offered in (iv)
+   with the queue within its bound and at least one shed, and 45
+   GroupNorm+swish launches per UNet evaluation and 128 W8A8 launches
+   per conditional w8a8 one (64 unconditional).  Last, the walls of one
+   w8a8 evaluation, one 512-px decode, the two in turn, and the decode
+   on a second stream beside the evaluation: what overlap can hide.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``.
 For ``fused_gn_swish`` and ``w8a8_matmul``, ``ms`` / ``plain_ms`` /
@@ -80,7 +103,8 @@ phase 3, weighted by launches per evaluation); for ``flash_attention``
 they are one prefill's worth (24 launches at the path shape), with
 ``passes`` (TF32 products per float32 product) and ``bound_f32_ms``
 (the float32 CUDA-core bound) beside them.
-``launches`` is each kernel's count over the runs of phases 5, 5b and 7.
+``launches`` is each kernel's count over the runs of phases 5, 5b, 7 and
+8, each read from counters set to 0 just before its run.
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, and the run then exits non-zero with no result; so does a run
 without CUDA or without the repository beside this file.
@@ -146,6 +170,14 @@ LOOSE_EXIT_TOL = 10.0
 # and the CPU take the same decisions (exact tallies); the noisy request's
 # draws agree to prng's normal tolerance, the rest as the W8A8 check
 FEATURES_SEEDS = (20, 21, 22)
+
+# the serving CLI's path (``serve_diffusion``), phase 8: SD v1.4 at w8a8,
+# unguided, 10 steps on 4 slots, at 4.0 req/s, about 1.2x the 3.3 req/s
+# that a 121 ms w8a8 step over 4 slots serves, so the slots stay full;
+# then 5x the measured capacity at 4 steps against a queue of 2x slots
+SERVE_REQUESTS, SERVE_RATE = 8, 4.0
+OVERLOAD, OVERLOAD_REQUESTS, OVERLOAD_STEPS = 5.0, 16, 4
+SERVE_OUT = ROOT / 'build' / 'serve-smoke'
 
 LM_ARCH = 'internlm2-1.8b'
 LM_BATCH, LM_PROMPT, LM_TOKENS = 4, 1000, 32
@@ -797,6 +829,42 @@ def phase_small_features(torch, numpy):
           'small features: no cached tick or no early exit')
 
 
+def phase_serve_small(torch, numpy):
+    """Phase 4c: ``serve_diffusion`` on the toy model (16 px) with 4 w8a8
+    requests all arriving at t=0, on the card with decode overlap and on
+    the CPU in order: the same images within ``W8A8_ATOL``, tallies and
+    energies."""
+    from repro_torch.launch import serve as tserve
+    out = {}
+    for dev in ('cuda', 'cpu'):
+        results, summary = tserve.serve_diffusion(
+            16, 4, 4, math.inf, 2, precision='w8a8', quality_probe=0,
+            overlap_decode=dev == 'cuda', model='toy', device=dev)
+        out[dev] = {r.request_id: r for r in results}, summary
+    (card, cs), (cpu, ps) = out['cuda'], out['cpu']
+    check(sorted(card) == sorted(cpu) == [0, 1, 2, 3],
+          f'serve-small: completed {sorted(card)} / {sorted(cpu)}')
+    check(cs['overlapped_decodes'] >= 1 and ps['overlapped_decodes'] == 0,
+          f'serve-small: overlapped decodes {cs["overlapped_decodes"]} '
+          f'on the card, {ps["overlapped_decodes"]} on the CPU')
+    for rid, a in card.items():
+        b = cpu[rid]
+        check((a.steps_executed, a.full_evals, a.energy_j)
+              == (b.steps_executed, b.full_evals, b.energy_j) and
+              a.energy_j > 0, f'serve-small request {rid}: tallies or '
+              'energy differ')
+        check(a.image.shape == (16, 16, 3) and numpy.isfinite(a.image).all(),
+              f'serve-small request {rid}: bad image')
+        err = float(numpy.abs(a.image - b.image).max())
+        print(f'[serve-small] request {rid} w8a8: card (decode overlap) vs '
+              f'CPU max abs err {err:.3e} (tol {W8A8_ATOL}), energy '
+              f'{a.energy_j:.6e} J')
+        check(err <= W8A8_ATOL, f'serve-small request {rid}: card vs CPU '
+              f'{err} > {W8A8_ATOL}')
+    print(f'[serve-small] {int(cs["overlapped_decodes"])} decodes '
+          'overlapped on the card')
+
+
 def pass_launches(ops, pipe, context):
     """Launches of each path kernel per UNet evaluation of every kind the
     serving-features engine runs: {(kind, conditional): {kernel: n}} for
@@ -1185,6 +1253,166 @@ def phase_lm_full(torch, numpy, ops, card):
     return launches
 
 
+def phase_serve(torch, numpy, ops, card):
+    """Phase 8: the serving CLI's path, ``serve_diffusion`` on SD v1.4 +
+    VAE 512 at full width (4 slots, 10 steps, w8a8, no quality probe):
+    (i) 8 requests at 4.0 req/s, (ii) the same trace with decode overlap,
+    (iii) run (ii) traced, with the Chrome trace, the JSONL log and the
+    Prometheus text written under ``build/serve-smoke``, (iv) 5x the
+    measured capacity, 16 requests at 4 steps.  Checks counts only:
+    requests completed, images, decodes overlapped, the trace reconciled,
+    the overload tallies, kernel launches per UNet evaluation."""
+    from repro_torch.launch import serve as tserve
+    from repro_torch.obs import read_jsonl
+    pipe = tserve._diffusion_pipe('sd-v1.4', None, 'cuda')
+    SERVE_OUT.mkdir(parents=True, exist_ok=True)
+    files = {k: str(SERVE_OUT / f'serve.{k}') for k in ('json', 'jsonl',
+                                                         'prom')}
+    runs = {
+        'i': dict(n_requests=SERVE_REQUESTS, rate_hz=SERVE_RATE,
+                  steps=STEPS),
+        'ii': dict(n_requests=SERVE_REQUESTS, rate_hz=SERVE_RATE,
+                   steps=STEPS, overlap_decode=True),
+        'iii': dict(n_requests=SERVE_REQUESTS, rate_hz=SERVE_RATE,
+                    steps=STEPS, overlap_decode=True,
+                    trace_path=files['json'], log_json_path=files['jsonl'],
+                    prom_path=files['prom']),
+        'iv': dict(n_requests=OVERLOAD_REQUESTS, rate_hz=SERVE_RATE,
+                   steps=OVERLOAD_STEPS, overload=OVERLOAD),
+    }
+    evals = collections.Counter()
+
+    def count_eval(module, args, kwargs):
+        x, t, ctx, pol = (list(args) + [None, None])[:4]
+        evals[(str(getattr(pol, 'name', pol)), ctx is None)] += 1
+
+    hook = pipe.unet.register_forward_pre_hook(count_eval, with_kwargs=True)
+    out = {}
+    torch.cuda.synchronize()
+    ops.reset_launches()                  # the CLI path's run starts here
+    try:
+        for name, kw in runs.items():
+            torch.cuda.reset_peak_memory_stats()
+            results, s = tserve.serve_diffusion(
+                None, slots=SLOTS, precision='w8a8', quality_probe=0,
+                model='sd-v1.4', device='cuda', pipe=pipe, **kw)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            out[name] = {r.request_id: r for r in results}, s
+            print(f'[serve] {card}: run ({name}) {kw["n_requests"]} '
+                  f'requests, {kw["steps"]} steps, '
+                  + (f'{OVERLOAD:g}x capacity' if 'overload' in kw
+                     else f'{SERVE_RATE} req/s')
+                  + f', overlap {kw.get("overlap_decode", False)}, traced '
+                  f'{"trace_path" in kw}: {int(s["completed"])} done, '
+                  f'{int(s["shed"])} shed, {s["requests_per_s"]:.4f} req/s, '
+                  f'p50 {s["p50_latency_ms"] / 1e3:.3f} s, p95 '
+                  f'{s["p95_latency_ms"] / 1e3:.3f} s, makespan '
+                  f'{s["makespan_s"]:.3f} s, energy '
+                  f'{s["energy_per_request_mj"]:.3f} mJ/request, overlapped '
+                  f'decodes {int(s["overlapped_decodes"])}, peak memory '
+                  f'{peak:.2f} GiB')
+    finally:
+        hook.remove()
+    launches = ops.launch_counts()        # ... and ends here
+    # the warmups' guided requests add unconditional evaluations, and the
+    # capacity probe serves fp32 requests, as the reference's does
+    want_mm = 128 * evals[('w8a8', False)] + 64 * evals[('w8a8', True)]
+    print(f'[serve] UNet evaluations by (policy, unconditional), warmups '
+          f'and capacity probe included: {dict(evals)}; kernel launches '
+          f'{launches}, expected fused_gn_swish {45 * sum(evals.values())}, '
+          f'w8a8_matmul {want_mm}')
+    check(launches['fused_gn_swish'] == 45 * sum(evals.values()) > 0,
+          'serve: fused_gn_swish launches do not match the evaluations')
+    check(launches['w8a8_matmul'] == want_mm > 0,
+          'serve: w8a8_matmul launches do not match the evaluations')
+    for name in ('i', 'ii', 'iii'):
+        res, s = out[name]
+        check(sorted(res) == list(range(SERVE_REQUESTS)),
+              f'serve run ({name}): completed {sorted(res)}')
+        for r in res.values():
+            check(r.image.shape == (512, 512, 3)
+                  and numpy.isfinite(r.image).all() and r.energy_j > 0,
+                  f'serve run ({name}) request {r.request_id}: bad result')
+    for name in ('ii', 'iii'):
+        check(out[name][1]['overlapped_decodes'] >= 1,
+              f'serve run ({name}): no decode overlapped')
+    err = max(float(numpy.abs(out['ii'][0][k].image
+                              - out['i'][0][k].image).max())
+              for k in out['i'][0])
+    print(f'[serve] images with decode overlap vs without: max abs err '
+          f'{err:.3e} (tol {W8A8_ATOL})')
+    check(err <= W8A8_ATOL, f'serve: overlap moved an image by {err}')
+    with open(files['json']) as f:
+        doc = json.loads(f.read(), parse_constant=lambda tok: 1 / 0)
+    events = read_jsonl(files['jsonl'])
+    with open(files['prom']) as f:
+        prom = f.read()
+    check(sum(e['name'] == 'request' for e in events) == SERVE_REQUESTS
+          and f'repro_serving_completed_total {SERVE_REQUESTS}\n' in prom
+          and len(doc['traceEvents']) > len(events),
+          'serve run (iii): trace files disagree with the run')
+    print(f'[serve] {card}: traced {out["iii"][1]["requests_per_s"]:.4f} '
+          f'req/s beside untraced {out["ii"][1]["requests_per_s"]:.4f} '
+          f'req/s (both with decode overlap); {len(events)} events, '
+          f'{len(doc["traceEvents"])} Chrome rows, {len(prom)} bytes of '
+          f'Prometheus text under {SERVE_OUT.relative_to(ROOT)}')
+    res, s = out['iv']
+    check(len(res) + int(s['shed']) == OVERLOAD_REQUESTS,
+          f'serve run (iv): {len(res)} completed + {s["shed"]} shed != '
+          f'{OVERLOAD_REQUESTS} offered')
+    check(s['max_queue_depth'] <= 2 * SLOTS,
+          f'serve run (iv): queue peaked at {s["max_queue_depth"]}')
+    check(s['shed'] >= 1, 'serve run (iv): nothing shed at 5x capacity')
+    print(f'[serve] overload: {len(res)} completed + {int(s["shed"])} shed '
+          f'== {OVERLOAD_REQUESTS} offered (queue_full '
+          f'{int(s.get("shed_queue_full", 0))}, expired '
+          f'{int(s.get("shed_expired", 0))}, evicted '
+          f'{int(s.get("shed_deadline_evict", 0))}), queue peaked at '
+          f'{int(s["max_queue_depth"])} <= {2 * SLOTS}')
+    decode_overlap_walls(torch, pipe, card)
+    del pipe
+    torch.cuda.empty_cache()
+    return launches
+
+
+def decode_overlap_walls(torch, pipe, card):
+    """What decode overlap can hide: the walls (``time_wall``) of one
+    w8a8 UNet evaluation over 4 slots, of one 512-px VAE decode, of the
+    two in turn on one stream, and of the decode on a second stream
+    beside the evaluation, as the engine runs them."""
+    cfg = pipe.unet_cfg
+    gen = torch.Generator().manual_seed(1)
+    ctx = torch.randn((SLOTS, 77, cfg.context_dim),
+                      generator=gen)[:1].repeat(SLOTS, 1, 1).cuda()
+    x = torch.randn((SLOTS, cfg.img_size, cfg.img_size, cfg.in_ch),
+                    generator=gen).cuda()
+    t = torch.full((SLOTS,), 500, device='cuda')
+    side = torch.cuda.Stream()
+
+    def step():
+        pipe.unet(x, t, ctx, 'w8a8')
+
+    def decode():
+        pipe.decode(x[:1])
+
+    def beside():
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            decode()
+        step()
+        torch.cuda.current_stream().wait_stream(side)
+
+    with torch.no_grad():
+        walls = {'step': time_wall(torch, step),
+                 'decode': time_wall(torch, decode),
+                 'step then decode': time_wall(torch, lambda: (step(),
+                                                               decode())),
+                 'decode beside step': time_wall(torch, beside)}
+    print(f'[serve] {card}: walls (ms, median of 3) of a w8a8 evaluation '
+          'over 4 slots and a 512-px decode: '
+          + json.dumps({k: round(v, 3) for k, v in walls.items()}))
+
+
 def main() -> int:
     import numpy
     import torch
@@ -1254,6 +1482,9 @@ def main() -> int:
     # phase 4: small width, card vs CPU
     phase_small(torch, numpy)
     phase_small_features(torch, numpy)
+    from repro_torch.launch.serve import setup_logging
+    setup_logging('info')           # serve_diffusion's [tag] lines
+    phase_serve_small(torch, numpy)
 
     # phase 5: full width through the engine
     launches = collections.Counter(
@@ -1274,6 +1505,11 @@ def main() -> int:
     lm_launches = phase_lm_full(torch, numpy, ops, card)
     print(f'[lm-full] LM path launches: {dict(lm_launches)}')
     launches.update(lm_launches)
+
+    # phase 8: the serving CLI's path at full width
+    serve_launches = phase_serve(torch, numpy, ops, card)
+    print(f'[serve] serving CLI path launches: {dict(serve_launches)}')
+    launches.update(serve_launches)
 
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():

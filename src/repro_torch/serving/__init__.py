@@ -1,6 +1,6 @@
 """Continuous-batching diffusion serving on one GPU with per-request
-precision selection, DeepCache phasing, early exit and photonic energy
-accounting (port of ``repro/serving``)::
+precision selection, DeepCache phasing, early exit, photonic energy
+accounting, decode overlap and tracing (port of ``repro/serving``)::
 
     pipe = DiffusionPipeline.init(0, SD_V1_4, VAE_512)        # on the GPU
     engine = ContinuousBatchingEngine(pipe, slots=4, context=ctx,
@@ -14,7 +14,9 @@ accounting (port of ``repro/serving``)::
 """
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.serving.api import GenerationRequest, GenerationResult
-from repro_torch.serving.batcher import (group_by_precision, plan_tick,
+from repro_torch.serving.batcher import (align_slots, choose_slots,
+                                         group_by_precision, offered_load,
+                                         overload_factor, plan_tick,
                                          split_cache_phase)
 from repro_torch.serving.engine import ContinuousBatchingEngine
 from repro_torch.serving.metrics import (FrontierPoint, MetricsSnapshot,
@@ -25,5 +27,6 @@ __all__ = [
     'GenerationRequest', 'GenerationResult', 'ContinuousBatchingEngine',
     'AdmissionQueue', 'SHED_POLICIES', 'ServingMetrics', 'MetricsSnapshot',
     'PrecisionPolicy', 'PhotonicAccountant', 'FrontierPoint',
-    'group_by_precision', 'plan_tick', 'split_cache_phase',
+    'align_slots', 'choose_slots', 'group_by_precision', 'offered_load',
+    'overload_factor', 'plan_tick', 'split_cache_phase',
 ]

@@ -1,11 +1,14 @@
-"""Per-tick step planning, port of the planning half of
-``repro/serving/batcher.py``: one engine serves fp32, w8a8 and
-w8a8+noise requests side by side by running one masked step per
-precision group each tick, and with DeepCache phasing splits each group
-into its refresh and skip slots."""
+"""Per-tick step planning and slot sizing, port of
+``repro/serving/batcher.py`` without its buckets: one engine serves
+fp32, w8a8 and w8a8+noise requests side by side by running one masked
+step per precision group each tick, and with DeepCache phasing splits
+each group into its refresh and skip slots.  ``offered_load``,
+``overload_factor`` and ``choose_slots`` size the offered traffic
+against the slot buffer by Little's law."""
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+import math
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -59,3 +62,65 @@ def plan_tick(precisions: Sequence[Optional[str]],
             if m.any():
                 plan.append((name, refresh, m))
     return plan
+
+
+def align_slots(slots: int, n_shards: int) -> int:
+    """Round a slot count up to a multiple of the mesh's slot-axis shard
+    count, so the engine's ``(slots, H, W, C)`` latent buffer divides
+    evenly over the ``data`` axis (every device carries the same number
+    of slot rows)."""
+    if slots < 1:
+        raise ValueError('need at least one slot')
+    if n_shards < 1:
+        raise ValueError('need at least one slot shard')
+    return ((slots + n_shards - 1) // n_shards) * n_shards
+
+
+def _per_precision(value, key):
+    return value[key] if isinstance(value, Mapping) else value
+
+
+def offered_load(arrival_rate_hz, step_time_s, mean_steps) -> float:
+    """Expected in-flight requests (Little's law L = lambda x W, with
+    W ~ steps x step_time) for the offered traffic.  Each term may be a
+    scalar or a per-precision mapping; per-precision loads add because
+    the precisions share one slot buffer."""
+    if isinstance(arrival_rate_hz, Mapping):
+        return sum(
+            rate * _per_precision(mean_steps, k) * _per_precision(
+                step_time_s, k)
+            for k, rate in arrival_rate_hz.items() if rate > 0)
+    if arrival_rate_hz <= 0 or step_time_s <= 0 or mean_steps <= 0:
+        return 0.0
+    return arrival_rate_hz * mean_steps * step_time_s
+
+
+def overload_factor(arrival_rate_hz, step_time_s, mean_steps,
+                    slots: int) -> float:
+    """Offered load over slot capacity: > 1 means arrivals exceed what
+    ``slots`` concurrent requests can drain and a bounded queue WILL
+    shed — the sizing anchor for overload traces (a "5x overload" trace
+    has ``overload_factor == 5``)."""
+    if slots < 1:
+        raise ValueError('need at least one slot')
+    return offered_load(arrival_rate_hz, step_time_s, mean_steps) / slots
+
+
+def choose_slots(arrival_rate_hz, step_time_s, mean_steps,
+                 target_util: float = 0.8, max_slots: int = 64,
+                 n_shards: int = 1) -> int:
+    """Little's law slot sizing: L = lambda x W, W ~ steps x step_time.
+
+    Each load term may be a scalar or a per-precision mapping (e.g.
+    ``arrival_rate_hz={'fp32': 1.0, 'w8a8': 4.0}`` with per-precision
+    step times); precisions share one slot buffer, so their expected
+    in-flight counts add.  Returns the slot count that keeps expected
+    occupancy at ``target_util`` of the buffer, clamped to [1, max_slots].
+    ``n_shards`` (the mesh's ``data``-axis size for a slot-sharded
+    engine) rounds the result up so the buffer divides evenly.
+    """
+    in_flight = offered_load(arrival_rate_hz, step_time_s, mean_steps)
+    if in_flight <= 0:
+        return align_slots(1, n_shards)
+    slots = max(1, min(max_slots, math.ceil(in_flight / target_util)))
+    return align_slots(slots, n_shards)

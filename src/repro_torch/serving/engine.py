@@ -47,9 +47,35 @@ and the per-row w8a8 activation scales treat batch rows independently,
 so an uncached request served here matches ``DiffusionPipeline.generate
 (seed, batch=1, ...)`` on its own.
 
-The engine runs eagerly (no graph capture) on one device; mesh
-sharding, decode overlap, elastic resize, tracing and ``replay`` are
-not ported.
+Serving a trace: ``replay`` submits each request once the serving clock
+(wall seconds since the replay began) passes its arrival time and ticks
+until every request completed or was shed; every time it records,
+trace events included, is on that clock.  ``measure_tick_s`` measures
+the steady tick time at full occupancy, which sizes overload traffic
+(``batcher.overload_factor``) and becomes ``tick_s_estimate``: admission
+then also sheds a queued request whose deadline falls inside its own
+estimated service time.
+
+Decode overlap (``overlap_decode``, off by default as on the reference's
+one device): a drained slot's VAE decode is dispatched and the slot
+refilled at once; its image materializes only after the NEXT tick's
+steps are enqueued, so results surface one tick later and an idle tick
+flushes the rest.  On CUDA the decode and its copy to pinned host memory
+run on a second stream that first waits for the main one, so they run
+behind the next UNet step; on the CPU the same split runs in order.
+
+Tracing (``tracer=``, a ``repro_torch.obs.Tracer``; default the no-op
+``NULL_TRACER``): the reference's event stream, every hook guarded on
+``tracer.enabled``: submit, shed (the victim, through the queue's
+``on_shed`` hook), slot assignment, one span per step call with its
+photonic energy, early exit, decode dispatch and completion, a request
+span stamped from the result's own timing fields, tick and warmup spans
+and an occupancy counter.  ``reporter`` (a ``SnapshotReporter``) is
+polled once per tick.  Step and tick spans time the host's enqueue: the
+device runs behind it.
+
+The engine runs eagerly (no graph capture) on one device; mesh sharding
+and elastic resize are not ported.
 """
 from __future__ import annotations
 
@@ -66,6 +92,7 @@ from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.diffusion import samplers
 from repro_torch.diffusion.deepcache import unet_apply_cached
 from repro_torch.diffusion.pipeline import DiffusionPipeline, initial_noise
+from repro_torch.obs.tracer import NULL_TRACER, Tracer
 from repro_torch.serving.api import GenerationRequest, GenerationResult
 from repro_torch.serving.batcher import plan_tick
 from repro_torch.serving.metrics import PhotonicAccountant, ServingMetrics
@@ -93,6 +120,20 @@ class _Active:
     exit_streak: int = 0         # consecutive ticks under exit_tol
 
 
+@dataclasses.dataclass
+class _Pending:
+    """A drained slot whose decode was dispatched: ``host`` is the image
+    on the host, complete once ``done`` (a CUDA event on the decode
+    stream, None where the decode ran in order) has fired."""
+    active: _Active
+    host: torch.Tensor
+    done: Optional[torch.cuda.Event]
+    now: float
+    wall_clock: bool
+    early: bool
+    slot: int
+
+
 class ContinuousBatchingEngine:
     #: queue shed causes -> the metrics ledger's reason names
     _SHED_REASONS = {'rejected': 'queue_full', 'evicted': 'deadline_evict',
@@ -106,7 +147,10 @@ class ContinuousBatchingEngine:
                  quality_probe: int = 1,
                  cache_interval: int = 1,
                  exit_tol: Optional[float] = None,
-                 exit_patience: int = 2):
+                 exit_patience: int = 2,
+                 overlap_decode: bool = False,
+                 tracer: Optional[Tracer] = None,
+                 reporter=None):
         """``context``: the ``(slots, T, context_dim)`` conditioning the
         conditional branch attends to (None: unconditional model).
         ``noise_seed``: the ``w8a8+noise`` policy's seed (its noise model
@@ -118,7 +162,12 @@ class ContinuousBatchingEngine:
         cadence, a full pass every ``cache_interval`` ticks (1: caching
         off).  ``exit_tol`` / ``exit_patience``: engine-wide early-exit
         defaults, which requests override per field (``exit_tol=None``
-        leaves early exit off)."""
+        leaves early exit off).  ``overlap_decode``: run each drained
+        slot's decode behind the next tick (on CUDA, on a second stream).
+        ``tracer``: a ``repro_torch.obs.Tracer`` recording the request and
+        engine event stream (default: the no-op ``NULL_TRACER``).
+        ``reporter``: a ``repro_torch.obs.SnapshotReporter`` polled once a
+        tick."""
         if slots < 1:
             raise ValueError('need at least one slot')
         if cache_interval < 1:
@@ -131,6 +180,15 @@ class ContinuousBatchingEngine:
         # `is not None`: an empty AdmissionQueue is falsy
         self.queue = queue if queue is not None else AdmissionQueue()
         self.metrics = metrics if metrics is not None else ServingMetrics()
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.reporter = reporter
+        self.overlap_decode = bool(overlap_decode)
+        # the decode stream; the CPU runs the overlapped decode in order
+        self._side = torch.cuda.Stream(self.device) \
+            if self.overlap_decode and self.device.type == 'cuda' else None
+        self._pending: List[_Pending] = []
+        self._tick_s: Optional[float] = None   # measured seconds per tick
+        self._wall_t0 = 0.0          # serving-clock origin (set by replay)
         self._user_on_shed = self.queue.on_shed
         self.queue.on_shed = self._queue_shed
         self.photonic = PhotonicAccountant(pipe.unet_cfg)
@@ -256,21 +314,62 @@ class ContinuousBatchingEngine:
 
     @property
     def busy(self) -> bool:
-        return self.active_count > 0 or len(self.queue) > 0
+        return (self.active_count > 0 or len(self.queue) > 0
+                or bool(self._pending))
+
+    @property
+    def tick_s_estimate(self) -> Optional[float]:
+        """Measured steady-state seconds per tick (None until
+        ``measure_tick_s`` runs; settable, so a deployment can pin it).
+        It sets the admission-time SLO margin."""
+        return self._tick_s
+
+    @tick_s_estimate.setter
+    def tick_s_estimate(self, value: Optional[float]) -> None:
+        self._tick_s = None if value is None else float(value)
+
+    def _service_margin_s(self, req: GenerationRequest) -> float:
+        """Estimated service time were ``req`` admitted now, the expiry
+        margin: one tick advances every slot one step, so ``steps``
+        ticks.  0 (expire only dead entries) until an estimate exists."""
+        if self._tick_s is None:
+            return 0.0
+        return req.steps * self._tick_s
+
+    def _step_energy_j(self, precision: str, refresh: bool,
+                       guided: bool) -> float:
+        """Energy one slot consumes in one tick of this kind: the delta a
+        ``step`` span carries per slot."""
+        full, cached = (1, 0) if refresh else (0, 1)
+        energy_j, _ = self.photonic.energy_evals(full, cached, guided,
+                                                 precision=precision)
+        return energy_j
 
     def _queue_shed(self, reason: str, req: GenerationRequest,
                     now: float) -> None:
+        """The queue's per-request shed hook: tally the cause and name
+        the victim in the trace."""
         self.metrics.record_shed(self._SHED_REASONS.get(reason, reason))
+        if self.tracer.enabled:
+            self.tracer.instant('shed', cat='queue', ts=now,
+                                rid=req.request_id,
+                                reason=self._SHED_REASONS.get(reason, reason),
+                                trace_id=req.effective_trace_id)
         if self._user_on_shed is not None:
             self._user_on_shed(reason, req, now)
 
     # -- request flow ------------------------------------------------------
     def submit(self, req: GenerationRequest,
                now: Optional[float] = None) -> bool:
-        now = time.perf_counter() if now is None else now
+        now = time.perf_counter() - self._wall_t0 if now is None else now
         ok = self.queue.submit(req, now)
         if ok:
             self.metrics.record_submit(now)
+            if self.tracer.enabled:
+                self.tracer.instant('submit', cat='queue', ts=now,
+                                    rid=req.request_id, steps=req.steps,
+                                    precision=req.precision,
+                                    trace_id=req.effective_trace_id)
         self.metrics.observe_queue_depth(len(self.queue))
         return ok
 
@@ -284,7 +383,9 @@ class ContinuousBatchingEngine:
 
     def _admit(self, now: float) -> None:
         if self.queue.has_deadlines:
-            self.queue.expire(now)     # a dead request never takes a slot
+            # a request dead now, or dead before it could finish, never
+            # takes a slot
+            self.queue.expire(now, margin_s=self._service_margin_s)
         if self.cache_interval > 1:
             if self._cached_active() == 0:
                 # nothing rides the cadence: re-anchor it, so an idle
@@ -313,6 +414,10 @@ class ContinuousBatchingEngine:
                 cache_on=self.cache_interval > 1 and interval > 1,
                 exit_tol=0.0 if tol is None else float(tol),
                 exit_patience=patience)
+            if self.tracer.enabled:
+                self.tracer.instant('slot_assign', cat='queue', ts=now,
+                                    rid=req.request_id, slot=idx,
+                                    queue_wait_s=now - q.enqueue_time)
             noise = initial_noise(req.seed, (1,) + self._sample_shape,
                                   self.device)[0]
             self.x[idx] = noise
@@ -342,21 +447,56 @@ class ContinuousBatchingEngine:
         psnr = math.inf if mse <= 0.0 else 10.0 * math.log10(rng * rng / mse)
         return mse, psnr
 
-    def _drain(self, idx: int, now: float, wall_clock: bool,
-               early: bool = False) -> GenerationResult:
-        """Decode a finished slot, free it, and account the result.  An
-        early-exit drain commits the converged x0 prediction instead of
-        the partly denoised latent."""
+    def _begin_drain(self, idx: int, now: float, wall_clock: bool,
+                     early: bool = False) -> _Pending:
+        """Dispatch a finished slot's decode and free the slot.  An
+        early-exit drain decodes the converged x0 prediction instead of
+        the partly denoised latent.  With a decode stream nothing here
+        waits for the device."""
         a = self._slot[idx]
-        req = a.request
         self._slot[idx] = None
-        z = (self.x0 if early else self.x)[idx:idx + 1]
-        # the copy: without a VAE the decode is a view of the slot buffer,
-        # which admission overwrites in place
-        image = self.pipe.decode(z)[0].cpu().numpy().copy()
-        if wall_clock:
-            # the device sync above makes this the time the image existed
-            now = time.perf_counter()
+        # the copy, on the main stream before the slot is refilled:
+        # admission overwrites the slot row in place, and without a VAE
+        # the decode is that row itself
+        z = (self.x0 if early else self.x)[idx:idx + 1].clone()
+        done = None
+        if self._side is None:
+            host = self.pipe.decode(z)[0].cpu()
+        else:
+            side = self._side
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            z.record_stream(side)    # made on the main stream, used here
+            with torch.cuda.stream(side):
+                image = self.pipe.decode(z)[0]
+                host = torch.empty(image.shape, dtype=image.dtype,
+                                   pin_memory=True)
+                host.copy_(image, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(side)
+        if self.tracer.enabled:
+            if early:
+                self.tracer.instant('early_exit', cat='request', ts=now,
+                                    rid=a.request.request_id, slot=idx,
+                                    steps_executed=a.i,
+                                    steps_requested=a.request.steps)
+            self.tracer.instant('decode_dispatch', cat='decode', ts=now,
+                                rid=a.request.request_id, slot=idx)
+        return _Pending(active=a, host=host, done=done, now=now,
+                        wall_clock=wall_clock, early=early, slot=idx)
+
+    def _finish_drain(self, p: _Pending,
+                      overlapped: bool = False) -> GenerationResult:
+        """Wait for a dispatched decode, stamp the latency, and account
+        the result.  ``overlapped`` marks a decode that ran behind the
+        following tick's steps."""
+        a, now, early = p.active, p.now, p.early
+        req = a.request
+        if p.done is not None:
+            p.done.synchronize()
+        image = p.host.numpy()
+        if p.wall_clock:
+            # only now has the last step and the decode run
+            now = time.perf_counter() - self._wall_t0
         pol = self._policy_for(req.precision)
         guided = req.guidance > 0.0 and self.context is not None
         # skip ticks are billed at the shallow fraction of a full tick; an
@@ -383,7 +523,34 @@ class ContinuousBatchingEngine:
             full_evals=a.full_evals, cached_evals=a.cached_evals,
             early_exit=early, trace_id=req.effective_trace_id)
         self.metrics.record_complete(res, slo_ms=req.slo_ms)
+        if self.tracer.enabled:
+            self.tracer.instant('decode_done', cat='decode', ts=now,
+                                rid=req.request_id, slot=p.slot,
+                                overlapped=overlapped)
+            # stamped from the result's own timing fields, so the trace's
+            # latency is the metrics' latency
+            self.tracer.complete(
+                'request', a.submit_time, now, cat='request',
+                rid=req.request_id, slot=p.slot, trace_id=res.trace_id,
+                precision=req.precision, steps_executed=a.i,
+                full_evals=a.full_evals, cached_evals=a.cached_evals,
+                early_exit=early, queue_wait_s=res.queue_delay_s,
+                energy_j=energy_j, slo_ms=req.slo_ms)
+            self.tracer.instant('complete', cat='request', ts=now,
+                                rid=req.request_id, slot=p.slot,
+                                latency_s=res.latency_s)
         return res
+
+    def _flush_pending(self, overlapped: bool) -> List[GenerationResult]:
+        """Materialize every dispatched decode.  ``overlapped``: a tick's
+        steps were enqueued between the dispatch and now."""
+        if not self._pending:
+            return []
+        pending, self._pending = self._pending, []
+        if overlapped:
+            self.metrics.record_overlapped_decode(len(pending))
+        return [self._finish_drain(p, overlapped=overlapped)
+                for p in pending]
 
     @torch.no_grad()
     def tick(self, now: Optional[float] = None,
@@ -392,12 +559,16 @@ class ContinuousBatchingEngine:
         step per (precision group, refresh|skip) entry of the plan ->
         drain finished and converged slots.  ``wall_clock`` (default:
         ``now`` not given) re-stamps each drained result after its device
-        sync, so latencies include the last step and the decode."""
+        sync, so latencies include the last step and the decode.  Under
+        decode overlap a result surfaces on the following tick, after that
+        tick's steps are enqueued; an idle tick flushes the rest."""
         wall_clock = (now is None) if wall_clock is None else wall_clock
-        now = time.perf_counter() if now is None else now
+        now = time.perf_counter() - self._wall_t0 if now is None else now
+        t_tick0 = time.perf_counter()
         self._admit(now)
         if self.active_count == 0:
-            return []
+            # no step to hide behind: not counted as overlapped
+            return self._flush_pending(overlapped=False)
         caching = self.cache_interval > 1
         refresh_tick = self._phase == 0
         t = np.zeros(self.slots, np.int64)
@@ -426,6 +597,7 @@ class ContinuousBatchingEngine:
         dev = self.device
         t_d = torch.from_numpy(t).to(dev)
         tp_d = torch.from_numpy(t_prev).to(dev)
+        traced = self.tracer.enabled
         for pname, refresh, m in plan:
             pol = self._policy_for(pname)
             g = np.where(m, guidance, 0.0).astype(np.float32)
@@ -433,6 +605,7 @@ class ContinuousBatchingEngine:
             key = self._tick_key(pol, tick_idx)
             m_d = torch.from_numpy(m).to(dev)
             g_d = torch.from_numpy(g).to(dev)
+            t_step0 = self.tracer.now() if traced else 0.0
             if caching:
                 self.x, self.x0, d = self._cached_step(
                     pol, guided, refresh, t_d, tp_d, m_d, g_d, key)
@@ -440,6 +613,17 @@ class ContinuousBatchingEngine:
                 self.x, self.x0, d = self._step(
                     pol, guided, t_d, tp_d, m_d, g_d, key, int(t[0]))
             self.delta = torch.where(m_d, d, self.delta)
+            if traced:
+                n_m = int(m.sum())
+                self.tracer.complete(
+                    'step', t_step0, self.tracer.now(), cat='tick',
+                    tick=tick_idx, precision=pname, refresh=refresh,
+                    guided=guided, slots=n_m,
+                    energy_j=self._step_energy_j(pname, refresh,
+                                                 guided) * n_m)
+        # decode overlap: the decodes dispatched last tick materialize
+        # now, behind the steps just enqueued
+        done = self._flush_pending(overlapped=True)
         if self.metrics.first_tick_s is None:
             if dev.type == 'cuda':
                 torch.cuda.synchronize(dev)
@@ -447,7 +631,6 @@ class ContinuousBatchingEngine:
         # the x0-convergence deltas reach the host (one small sync) only
         # when some slot may exit this tick
         deltas = self.delta.cpu().numpy() if track_exit else None
-        done: List[GenerationResult] = []
         for idx, a in enumerate(self._slot):
             if a is None:
                 continue
@@ -467,9 +650,24 @@ class ContinuousBatchingEngine:
                 if a.exit_streak >= a.exit_patience:
                     finished = early = True
             if finished:
-                done.append(self._drain(idx, now, wall_clock, early=early))
+                p = self._begin_drain(idx, now, wall_clock, early=early)
+                if self.overlap_decode:
+                    self._pending.append(p)   # waited for next tick
+                else:
+                    done.append(self._finish_drain(p))
         if caching and had_cached:
             self._phase = (self._phase + 1) % self.cache_interval
+        if traced:
+            t1 = self.tracer.now()
+            self.tracer.complete(
+                'tick', t1 - (time.perf_counter() - t_tick0), t1,
+                cat='tick', tick=tick_idx, active=int(active.sum()),
+                drained=len(done))
+            self.tracer.counter('occupancy', cat='engine', tick=tick_idx,
+                                active=self.active_count,
+                                queued=len(self.queue))
+        if self.reporter is not None:
+            self.reporter.maybe_report(engine=self)
         return done
 
     def run_until_idle(self, now: Optional[float] = None,
@@ -486,6 +684,48 @@ class ContinuousBatchingEngine:
                 now += tick_dt
         raise RuntimeError(f'engine still busy after {max_ticks} ticks')
 
+    def replay(self, requests: List[GenerationRequest],
+               max_ticks: int = 1_000_000,
+               on_result=None) -> List[GenerationResult]:
+        """Wall-clock replay of an arrival trace: each request is
+        submitted once the serving clock (seconds since this call began)
+        passes its ``arrival_time``; the engine sleeps while nothing has
+        arrived.  ``on_result`` is called with each result as it
+        completes."""
+        pending = sorted(requests, key=lambda r: r.arrival_time)
+        t0 = self._wall_t0 = time.perf_counter()
+        # the trace's clock is the serving clock, so trace timestamps and
+        # the results' timing fields agree
+        self.tracer.set_origin(t0)
+        results: List[GenerationResult] = []
+        for _ in range(max_ticks):
+            now = time.perf_counter() - t0
+            while pending and pending[0].arrival_time <= now:
+                self.submit(pending.pop(0), now=now)
+            if not self.busy:
+                if not pending:
+                    return results
+                time.sleep(max(0.0, pending[0].arrival_time - now))
+                continue
+            batch = self.tick(now=time.perf_counter() - t0, wall_clock=True)
+            results.extend(batch)
+            if on_result is not None:
+                for res in batch:
+                    on_result(res)
+        raise RuntimeError('replay exceeded max_ticks')
+
+    def _throwaway(self):
+        """Swap in an empty queue and metrics, no quality probe and no
+        tracer for throwaway requests; returns what to restore."""
+        saved = (self.queue, self.metrics, self.quality_probe, self.tracer)
+        self.queue, self.metrics = AdmissionQueue(), ServingMetrics()
+        self.quality_probe = 0          # no fp32 references for throwaways
+        self.tracer = NULL_TRACER       # throwaways stay out of the trace
+        return saved
+
+    def _restore(self, saved) -> None:
+        self.queue, self.metrics, self.quality_probe, self.tracer = saved
+
     def warmup(self, precisions=('fp32',)) -> float:
         """Run throwaway requests per precision (and a guided one when the
         engine holds a context), so the kernels are built and loaded and
@@ -493,9 +733,7 @@ class ContinuousBatchingEngine:
         long enough to cross a refresh boundary (a refresh and a skip
         step).  Returns wall seconds, also recorded in the metrics."""
         t0 = time.perf_counter()
-        saved = self.queue, self.metrics, self.quality_probe
-        self.queue, self.metrics = AdmissionQueue(), ServingMetrics()
-        self.quality_probe = 0          # no fp32 references for throwaways
+        saved = self._throwaway()
         steps = 1 if self.cache_interval <= 1 else self.cache_interval + 1
         try:
             for i, pname in enumerate(precisions):
@@ -506,7 +744,32 @@ class ContinuousBatchingEngine:
                         guidance=g, exit_tol=0.0, precision=pname), now=0.0)
                     self.run_until_idle(now=0.0)
         finally:
-            self.queue, self.metrics, self.quality_probe = saved
+            self._restore(saved)
         dt = time.perf_counter() - t0
         self.metrics.record_warmup(dt)
+        if self.tracer.enabled:
+            t1 = self.tracer.now()
+            self.tracer.complete('warmup', t1 - dt, t1, cat='engine',
+                                 precisions=list(precisions), seconds=dt)
         return dt
+
+    def measure_tick_s(self, steps: int = 4) -> float:
+        """Steady-state wall seconds per tick at full slot occupancy
+        (throwaway requests; metrics and trace untouched): the capacity
+        anchor for overload sizing, since the engine completes ``slots /
+        (steps * tick_s)`` requests/s.  Call after warmup, so no build
+        or first-call time leaks in.  Also sets ``tick_s_estimate``."""
+        saved = self._throwaway()
+        try:
+            for i in range(self.slots):
+                self.submit(GenerationRequest(request_id=-(100 + i),
+                                              seed=i, steps=steps,
+                                              exit_tol=0.0), now=0.0)
+            t0 = time.perf_counter()
+            self.run_until_idle(now=0.0)
+            dt = time.perf_counter() - t0
+            ticks = max(self.metrics.ticks, 1)
+        finally:
+            self._restore(saved)
+        self._tick_s = dt / ticks
+        return self._tick_s

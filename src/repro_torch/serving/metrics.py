@@ -12,8 +12,9 @@ simulated numbers); ``fp32`` requests are billed the paper's Fig. 10 GPU
 digital baseline (EPB at 94.18x DiffLight's, 32-bit operands).
 
 ``ServingMetrics`` keeps the queue/latency ledger (p50/p95/p99 latency,
-p50/p99 queue wait, requests/s, tick counters, SLO violations, sheds by
-cause, peak queue depth, warmup and time-to-first-tick), the DeepCache
+p50/p99 queue wait and their sums, requests/s, tick counters, SLO
+violations, sheds by cause, peak queue depth, warmup, time-to-first-tick
+and decodes overlapped with the next tick), the DeepCache
 and early-exit counters (full and cached slot-steps, cache hit rate,
 mixed ticks, early exits, steps saved) and the frontier: one
 ``FrontierPoint`` per completed request and per-policy aggregates.
@@ -146,6 +147,11 @@ class MetricsSnapshot:
     steps_saved: int = 0         # total requested-minus-executed steps
     steps_saved_hist: Dict[int, int] = dataclasses.field(
         default_factory=dict)
+    # the reference's sharded-serving counters: one device, never resized
+    resizes: int = 0
+    devices: int = 1
+    overlapped_decodes: int = 0  # drains whose VAE decode overlapped the
+    #                              next denoise tick
     frontier: Dict[str, Dict[str, float]] = dataclasses.field(
         default_factory=dict)
 
@@ -169,7 +175,12 @@ class ServingMetrics:
         self.early_exits = 0
         self.steps_saved = 0
         self.steps_saved_hist: Dict[int, int] = {}
+        self.resizes = 0
+        self.devices = 1
+        self.overlapped_decodes = 0
         self.frontier_points: List[FrontierPoint] = []
+        self.latency_sum_s = 0.0      # summary _sum for the exposition
+        self.queue_wait_sum_s = 0.0
         self._latencies: List[float] = []       # kept sorted
         self._queue_waits: List[float] = []     # kept sorted
         self._first_submit: Optional[float] = None
@@ -202,6 +213,10 @@ class ServingMetrics:
         if self.first_tick_s is None:
             self.first_tick_s = seconds
 
+    def record_overlapped_decode(self, n: int = 1):
+        """Drains whose VAE decode ran behind the next denoise tick."""
+        self.overlapped_decodes += n
+
     def record_tick(self, active_slots: int,
                     full_slots: Optional[int] = None,
                     cached_slots: int = 0):
@@ -227,6 +242,8 @@ class ServingMetrics:
         self.completed += 1
         bisect.insort(self._latencies, res.latency_s)
         bisect.insort(self._queue_waits, res.queue_delay_s)
+        self.latency_sum_s += res.latency_s
+        self.queue_wait_sum_s += res.queue_delay_s
         self.total_energy_j += res.energy_j
         self._last_finish = res.finish_time if self._last_finish is None \
             else max(self._last_finish, res.finish_time)
@@ -342,4 +359,42 @@ class ServingMetrics:
             early_exits=self.early_exits,
             steps_saved=self.steps_saved,
             steps_saved_hist=dict(self.steps_saved_hist),
+            resizes=self.resizes,
+            devices=self.devices,
+            overlapped_decodes=self.overlapped_decodes,
             frontier=self.frontier())
+
+    def summary(self) -> Dict[str, float]:
+        """The end-of-run report, key for key as the reference's: one
+        ``shed_<reason>`` key per shed cause beside ``deadline_sheds``
+        (the expired and evicted sheds together)."""
+        s = self.snapshot()
+        out = {
+            'completed': float(s.completed),
+            'requests_per_s': s.requests_per_s,
+            'p50_latency_ms': s.p50_latency_s * 1e3,
+            'p95_latency_ms': s.p95_latency_s * 1e3,
+            'p99_latency_ms': s.p99_latency_s * 1e3,
+            'total_energy_mj': s.total_energy_j * 1e3,
+            'energy_per_request_mj': (s.total_energy_j * 1e3 /
+                                      max(s.completed, 1)),
+            'slo_violations': float(s.slo_violations),
+            'shed': float(s.shed),
+            'deadline_sheds': float(
+                s.shed_by_reason.get('deadline_evict', 0)
+                + s.shed_by_reason.get('expired', 0)),
+            'p50_queue_wait_ms': s.p50_queue_wait_s * 1e3,
+            'p99_queue_wait_ms': s.p99_queue_wait_s * 1e3,
+            'max_queue_depth': float(s.max_queue_depth),
+            'warmup_s': s.warmup_s,
+            'first_tick_s': s.first_tick_s,
+            'cache_hit_rate': s.cache_hit_rate,
+            'early_exits': float(s.early_exits),
+            'steps_saved': float(s.steps_saved),
+            'resizes': float(s.resizes),
+            'devices': float(s.devices),
+            'overlapped_decodes': float(s.overlapped_decodes),
+        }
+        for reason, count in sorted(s.shed_by_reason.items()):
+            out[f'shed_{reason}'] = float(count)
+        return out

@@ -18,7 +18,11 @@ paper's with every sigma thirty times larger: the right chain stays
 within the tolerance there (measured 2.3e-4), and each wrong one
 (another noise seed; a fold dropped or added; the tick index shifted)
 must move a noisy image by ``WRONG_CHAIN_MARGIN`` times it (measured
-6.5e-3 to 6.5e-2)."""
+6.5e-3 to 6.5e-2).  With caching off (every step through the engine's
+``_step``, whose keys fold in slot 0's timestep) the right chain measured
+1.0e-4 under the paper's model and 1.1e-4 under the amplified one;
+folding in slot 1's timestep instead moved the noisy images that shared
+a tick with another timestep by 1.4e-2 to 3.2e-2."""
 import itertools
 import types
 
@@ -257,16 +261,30 @@ SEQ = [dict(request_id=0, seed=31, steps=8, guidance=2.5),
 LATE = {1: [3]}                    # tick -> requests submitted before it
 
 
-def _serve(engine, make_req, slots=3):
+# the uncached sequence (caching off, so every step goes through the
+# engine's ``_step`` and its ``t_first``): noisy requests, one guided,
+# the one in slot 0 draining after 2 steps so that a request two steps
+# behind the others takes slot 0.  The guided request outlasts the rest,
+# so every tick runs the one guided step (one compile of the reference's)
+SEQ_UNCACHED = [dict(request_id=0, seed=41, steps=2,
+                     precision='w8a8+noise'),
+                dict(request_id=1, seed=42, steps=6, precision='w8a8+noise',
+                     guidance=2.5),
+                dict(request_id=2, seed=43, steps=4, precision='w8a8+noise'),
+                dict(request_id=3, seed=44, steps=3, precision='w8a8+noise')]
+LATE_UNCACHED = {1: [3]}
+
+
+def _serve(engine, make_req, slots=3, seq=SEQ, late=LATE):
     results, now = [], 0.0
-    for r in SEQ[:slots]:
+    for r in seq[:slots]:
         assert engine.submit(make_req(**r), now=now)
     for k in range(100):
-        for i in LATE.get(k, ()):
-            assert engine.submit(make_req(**SEQ[i]), now=now)
+        for i in late.get(k, ()):
+            assert engine.submit(make_req(**seq[i]), now=now)
         results.extend(engine.tick(now=now))
         now += 1.0
-        if not engine.busy and k >= max(LATE):
+        if not engine.busy and k >= max(late):
             return {r.request_id: r for r in results}
     raise AssertionError('engine did not drain')
 
@@ -275,6 +293,10 @@ ENGINE_KW = dict(slots=3, cache_interval=3, exit_tol=0.01, exit_patience=2,
                  noise_seed=5, quality_probe=0)
 NOISY = [i for i, r in enumerate(SEQ) if r.get('precision') == 'w8a8+noise']
 GUIDED_NOISY = [i for i in NOISY if SEQ[i].get('guidance', 0.0) > 0.0]
+# each engine run: (engine keywords, request sequence, late submissions)
+RUNS = {'cached': (ENGINE_KW, SEQ, LATE),
+        'uncached': (dict(ENGINE_KW, cache_interval=1, exit_tol=None),
+                     SEQ_UNCACHED, LATE_UNCACHED)}
 
 
 @pytest.fixture(scope='module')
@@ -284,18 +306,21 @@ def engine_ctx():
 
 @pytest.fixture(scope='module')
 def reference_engine(jpipe, engine_ctx):
-    """The JAX engine after serving ``SEQ`` under a noise model, and its
-    results by id, memoised.  (The reference's engine takes the model;
-    the port's serves the default one, see ``_port_engine``.)"""
+    """The JAX engine after a run of ``RUNS`` (default: serving ``SEQ``)
+    under a noise model, and its results by id, memoised.  (The
+    reference's engine takes the model; the port's serves the default
+    one, see ``_port_engine``.)"""
     memo = {}
 
-    def get(noise):
-        if noise not in memo:
+    def get(noise, run='cached'):
+        if (noise, run) not in memo:
+            kw, seq, late = RUNS[run]
             with jax.threefry_partitionable(True):
                 jeng = JEngine(jpipe, context=jnp.asarray(engine_ctx),
-                               noise_model=NOISE[noise][0], **ENGINE_KW)
-                memo[noise] = jeng, _serve(jeng, JReq)
-        return memo[noise]
+                               noise_model=NOISE[noise][0], **kw)
+                memo[noise, run] = jeng, _serve(jeng, JReq, seq=seq,
+                                                late=late)
+        return memo[noise, run]
     return get
 
 
@@ -310,16 +335,22 @@ def _port_engine(tpipe, ctx, noise, monkeypatch, **kw):
                    torch.from_numpy(ctx), **kw)
 
 
-@pytest.mark.parametrize('noise', sorted(NOISE))
+@pytest.mark.parametrize('noise,run', [
+    ('amplified', 'cached'), ('paper', 'cached'),
+    ('amplified', 'uncached'), ('paper', 'uncached')],
+    ids=['amplified', 'paper', 'amplified-uncached', 'paper-uncached'])
 def test_engine_matches_reference_engine(tpipe, engine_ctx,
-                                         reference_engine, noise,
+                                         reference_engine, noise, run,
                                          monkeypatch):
     """DeepCache phasing, early exit, w8a8+noise and guidance together,
     through both engines on the same request sequence: the same images,
-    eval tallies, exits and energies."""
-    jeng, want = reference_engine(noise)
-    teng = _port_engine(tpipe, engine_ctx, noise, monkeypatch, **ENGINE_KW)
-    got = _serve(teng, TReq)
+    eval tallies, exits and energies.  The uncached run holds the noisy
+    ``_step`` path (slot 0's timestep folded into each key) against the
+    reference."""
+    jeng, want = reference_engine(noise, run)
+    kw, seq, late = RUNS[run]
+    teng = _port_engine(tpipe, engine_ctx, noise, monkeypatch, **kw)
+    got = _serve(teng, TReq, seq=seq, late=late)
     assert sorted(got) == sorted(want) == [0, 1, 2, 3]
     for rid, w in want.items():
         g = got[rid]
@@ -331,9 +362,14 @@ def test_engine_matches_reference_engine(tpipe, engine_ctx,
         np.testing.assert_allclose(g.image, np.asarray(w.image),
                                    atol=ENGINE_ATOL, err_msg=str(rid))
     # the sequence exercises what it claims to
-    assert any(r.early_exit for r in want.values())
-    assert not want[3].early_exit and want[3].cached_evals > 0
-    assert want[2].cached_evals == 0
+    if run == 'cached':
+        assert any(r.early_exit for r in want.values())
+        assert not want[3].early_exit and want[3].cached_evals > 0
+        assert want[2].cached_evals == 0
+    else:
+        assert not any(r.early_exit or r.cached_evals for r in want.values())
+        # the late request took slot 0 one tick behind the others
+        assert want[0].finish_time == 1.0 and want[3].start_time == 2.0
     js, ts = jeng.metrics.snapshot(), teng.metrics.snapshot()
     for f in ('ticks', 'unet_steps', 'full_steps', 'cached_steps',
               'mixed_ticks', 'early_exits', 'steps_saved'):
@@ -375,6 +411,27 @@ def test_engine_tolerance_fails_a_wrong_key_chain(
     got = _serve(teng, TReq)
     for rid in GUIDED_NOISY if wrong == 'branch_unfolded' else NOISY:
         _assert_moved(got[rid].image, want[rid].image, (wrong, rid))
+
+
+def test_uncached_engine_tolerance_fails_a_wrong_t_first(
+        tpipe, engine_ctx, reference_engine, monkeypatch):
+    """Under the amplified noise model, the port's engine serving the
+    uncached sequence with each step's key folding in slot 1's timestep
+    instead of slot 0's moves every noisy image that shared a tick with
+    a slot 0 at another timestep far beyond the parity tolerance."""
+    _, want = reference_engine('amplified', 'uncached')
+    step = TEngine._step
+
+    def other_slot(self, pol, guided, t, t_prev, active, guidance, key,
+                   t_first):
+        return step(self, pol, guided, t, t_prev, active, guidance, key,
+                    int(t[1]))
+    monkeypatch.setattr(TEngine, '_step', other_slot)
+    kw, seq, late = RUNS['uncached']
+    teng = _port_engine(tpipe, engine_ctx, 'amplified', monkeypatch, **kw)
+    got = _serve(teng, TReq, seq=seq, late=late)
+    for rid in (1, 2, 3):
+        _assert_moved(got[rid].image, want[rid].image, ('t_first', rid))
 
 
 def test_noisy_engine_is_deterministic_under_its_seed(tpipe, monkeypatch):

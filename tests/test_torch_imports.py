@@ -1,6 +1,6 @@
-"""Import hygiene of the port: ``repro_torch``, ``chip_smoke.py`` and the
-port's profiling script never import ``jax`` or anything of the JAX
-package ``repro``, and
+"""Import hygiene of the port: ``repro_torch``, ``chip_smoke.py``, the
+port's profiling script and its serving example never import ``jax`` or
+anything of the JAX package ``repro``, and
 ``chip_smoke.py`` refuses to run where it has no GPU or no repository."""
 import ast
 import os
@@ -14,7 +14,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / 'src' / 'repro_torch'
 SOURCES = sorted(str(p.relative_to(ROOT)) for p in PORT.rglob('*.py')) + [
-    'chip_smoke.py', 'scripts/torch_profile_step.py']
+    'chip_smoke.py', 'scripts/torch_profile_step.py',
+    'examples/serve_diffusion_torch.py']
 
 # the serving features' modules (threefry generator, photonic model,
 # DeepCache): the hygiene tests below must reach each of them
@@ -28,6 +29,17 @@ SERVING_FEATURE_MODULES = [
     'src/repro_torch/core/photonic/baselines.py',
     'src/repro_torch/core/photonic/noise.py',
     'src/repro_torch/diffusion/deepcache.py',
+]
+# the serving CLI's modules: the copied observability package, the engine
+# and the entry point
+SERVING_CLI_MODULES = [
+    'src/repro_torch/obs/__init__.py',
+    'src/repro_torch/obs/tracer.py',
+    'src/repro_torch/obs/export.py',
+    'src/repro_torch/obs/prom.py',
+    'src/repro_torch/serving/engine.py',
+    'src/repro_torch/launch/serve.py',
+    'examples/serve_diffusion_torch.py',
 ]
 
 
@@ -47,11 +59,20 @@ def test_source_never_imports_jax_or_the_reference(source):
         assert top not in ('jax', 'jaxlib', 'repro'), f'{source} imports {mod}'
 
 
-@pytest.mark.parametrize('source', SERVING_FEATURE_MODULES)
+@pytest.mark.parametrize('source',
+                         SERVING_FEATURE_MODULES + SERVING_CLI_MODULES)
 def test_serving_feature_modules_are_covered(source):
     assert source in SOURCES
     mods = {m.split('.')[0] for m in _imported_modules(ROOT / source)}
     assert not mods & {'jax', 'jaxlib', 'repro'}, source
+
+
+def test_obs_imports_only_the_standard_library():
+    for path in (PORT / 'obs').glob('*.py'):
+        for mod in _imported_modules(path):
+            top = mod.split('.')[0]
+            assert top in sys.stdlib_module_names or \
+                mod.startswith('repro_torch.obs'), f'{path.name}: {mod}'
 
 
 def test_every_module_imports_with_jax_and_repro_blocked():

@@ -186,12 +186,22 @@ def test_lm_loader_is_strict():
 
 
 def test_serve_main_runs_on_cpu_and_refuses_diffusion(capsys):
+    """Both branches of ``main`` serve on the CPU; what it refuses is the
+    reference's mesh and compile-cache flags, naming their ROADMAP
+    entries."""
     tserve.main(['--arch', 'internlm2-1.8b', '--preset', 'smoke',
                  '--device', 'cpu', '--prompt', '5', '--tokens', '3'])
     out = capsys.readouterr().out
     assert '[serve] prefill 5 toks x2' in out and 'sample token ids' in out
-    with pytest.raises(NotImplementedError, match='item 4'):
-        tserve.main(['--diffusion'])
+    tserve.main(['--diffusion', '--device', 'cpu', '--requests', '2',
+                 '--rate', '50', '--slots', '2', '--steps', '2'])
+    out = capsys.readouterr().out
+    assert '[serve] 2 done in' in out and '[frontier] fp32:' in out
+    for flag, item in (('--devices', 'item 6b'), ('--resize-to', 'item 6b'),
+                       ('--cache-dir', 'Also not ported')):
+        with pytest.raises(SystemExit):
+            tserve.main(['--diffusion', '--device', 'cpu', flag, '2'])
+        assert item in capsys.readouterr().err
 
 
 def test_serve_main_defaults_to_the_card():
