@@ -25,13 +25,17 @@ Phases, each printing its own lines:
    W8A8 weight quantization with and without the K-major copy the kernel
    reads (glue on the dynamic path); likewise
    the flash-attention kernel at the InternLM2-1.8B prefill shape and
-   the reference kernel test's shapes (``FLASH_SHAPES``; bound at the
-   TF32 peak times the kernel's passes, beside the float32 CUDA-core
-   bound of the earlier CUDA-core kernel), and its grouped entry
-   ``flash_attention_bshd`` at the prefill's own layout (q (4, 1000,
-   16, 128) against a slice of a (4, 1001, 8, 128) cache), and the W8A8
-   kernel at the LM's projection shapes (``torch._int_mm`` refuses M <=
-   16, so at the decode step it is timed on M padded to 32 rows);
+   the Granite-MoE prefill shape (head dim 64) and the reference kernel
+   test's shapes (``FLASH_SHAPES``; bound at the TF32 peak times the
+   kernel's passes, beside the float32 CUDA-core bound of the earlier
+   CUDA-core kernel), and its grouped entry ``flash_attention_bshd`` at
+   each prefill's own layout (InternLM2: q (4, 1000, 16, 128) against a
+   slice of a (4, 1001, 8, 128) cache; Granite-MoE: (4, 1000, 16, 64)
+   against (4, 1001, 16, 64)), and the W8A8 kernel, bit-exact, at every
+   (K, N) of the w8a8 forward of InternLM2, Granite-MoE,
+   DeepSeek-V2-Lite and Mamba2 at M = 4000 and M = 4 (``torch._int_mm``
+   refuses M <= 16, so at the decode step it is timed on M padded to 32
+   rows);
    3b. prng: the threefry generator (``core/prng``) on the card against
    the CPU: bits equal bit for bit at an odd 1-D shape and at 1360 x
    1360, normals within its stated tolerance; the time of one 1360 x
@@ -62,9 +66,10 @@ Phases, each printing its own lines:
    req/s, p50, peak memory, PSNR by kind against the fp32 probe, the
    walls of a w8a8, a noisy, a refresh and a skip step over 4 slots, and
    the share of the noisy step its noise draws take;
-6. LM small width: the smoke InternLM2 (head dim 16, GQA rep 2) from one
-   seed on the card and on the CPU, a prefill and 8 decode steps at fp32
-   and at w8a8, logits compared step by step;
+6. LM small width: the smoke InternLM2 (head dim 16, GQA rep 2),
+   Granite-MoE, DeepSeek-V2-Lite (MLA + MoE), Mamba2 and Jamba (one
+   hybrid unit) from one seed on the card and on the CPU, a prefill and 8
+   decode steps at fp32 and at w8a8, logits compared step by step;
 7. LM full width: InternLM2-1.8B with random weights from seed 0 on the
    card.  First the check: the prefill's last-token logits (flash
    kernel) against ``lm_apply``'s at the last position (``gqa_core``) on
@@ -93,7 +98,17 @@ Phases, each printing its own lines:
    GroupNorm+swish launches per UNet evaluation and 128 W8A8 launches
    per conditional w8a8 one (64 unconditional).  Last, the walls of one
    w8a8 evaluation, one 512-px decode, the two in turn, and the decode
-   on a second stream beside the evaluation: what overlap can hide.
+   on a second stream beside the evaluation: what overlap can hide;
+9. LM families: every earlier model freed (the allocated memory printed
+   first), Granite-MoE-1B-A400M, DeepSeek-V2-Lite-16B and Mamba2-2.7B in
+   turn at full width and depth, each with phase 7's check (w8a8: within
+   the run's quantization noise) and ``serve_lm`` runs at fp32 and w8a8:
+   launches held to ``FAMILY_PLAN`` (Granite 24 flash per prefill and 48
+   W8A8 per w8a8 forward; DeepSeek 0 and 189; Mamba2 0 and 256) and the
+   W8A8 shapes of a prefill to phase 3's list; tokens, prefill s, decode
+   tok/s and peak memory printed.
+
+Every phase prints its seconds (``[time]``).
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``.
 For ``fused_gn_swish`` and ``w8a8_matmul``, ``ms`` / ``plain_ms`` /
@@ -103,8 +118,8 @@ phase 3, weighted by launches per evaluation); for ``flash_attention``
 they are one prefill's worth (24 launches at the path shape), with
 ``passes`` (TF32 products per float32 product) and ``bound_f32_ms``
 (the float32 CUDA-core bound) beside them.
-``launches`` is each kernel's count over the runs of phases 5, 5b, 7 and
-8, each read from counters set to 0 just before its run.
+``launches`` is each kernel's count over the runs of phases 5, 5b, 7, 8
+and 9, each read from counters set to 0 just before its run.
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, and the run then exits non-zero with no result; so does a run
 without CUDA or without the repository beside this file.
@@ -112,6 +127,7 @@ without CUDA or without the repository beside this file.
 from __future__ import annotations
 
 import collections
+import gc
 import json
 import math
 import os
@@ -159,6 +175,14 @@ LM_SMALL_W8A8_ATOL = 1e-2
 # bound is relative to that logit
 LM_FULL_FP32_ATOL = 1e-3
 LM_FULL_W8A8_RTOL = 0.1
+# ... and for every LM under w8a8, the gap may not exceed the quantization
+# noise itself: the distance of lm_apply's w8a8 logits from its fp32 ones
+# in the same run, in max abs and in relative L2.  The cascade grows with
+# depth to that level and no further (``scripts/torch_lm_gap.py``: on the
+# card, DeepSeek-V2-Lite at full width, 1 / 3 / 9 / 27 layers, gap
+# relative L2 1.3e-6 / 1.6e-2 / 9.7e-2 / 6.7e-2 against a distance of
+# 2.3e-2 / 0.166 / 0.163 / 0.121); its 27-layer gap is 10.4% of the
+# largest logit, beyond the dense LM's 10%, which phase 9 does not apply
 
 # serving features at full width: the shared DeepCache cadence and the
 # engine's early-exit tolerance (one request asks for a looser one, so at
@@ -182,14 +206,29 @@ SERVE_OUT = ROOT / 'build' / 'serve-smoke'
 LM_ARCH = 'internlm2-1.8b'
 LM_BATCH, LM_PROMPT, LM_TOKENS = 4, 1000, 32
 SMALL_LM_STEPS = 8
+# phase 9: the MoE, MLA and SSM families at full width, phase 7's traffic;
+# per family the plan: flash launches per prefill, W8A8 launches per
+# w8a8 forward (Granite: wq, wo x 24; DeepSeek: MLA wq, w_dkv, w_kpe, wo
+# and the shared experts' gate, up, down x 27; Mamba2: in_z, in_xbc,
+# in_dt, out_proj x 64; routers and experts stay float)
+FAMILY_PLAN = {'granite-moe-1b-a400m': (24, 48),
+               'deepseek-v2-lite-16b': (0, 189),
+               'mamba2-2.7b': (0, 256)}
+# small width, card against CPU (phase 6): the dense LM and the smoke
+# configs of every decoder-only family; Jamba runs only here (398.6 B
+# parameters, 1485 GiB in float32, fit no card)
+SMALL_LM_ARCHS = (LM_ARCH, 'granite-moe-1b-a400m', 'deepseek-v2-lite-16b',
+                  'mamba2-2.7b', 'jamba-1.5-large-398b')
 # (BH, S, T, d, causal, q dtype, k/v dtype): the InternLM2-1.8B prefill
 # (4 x 16 heads, 1000 tokens, not a multiple of the 64-row tile) in the
-# path's float32, all-bf16, and float32 q over a bf16 cache; then the
-# reference kernel test's shapes at B x H = 2 x 3
+# path's float32, all-bf16, and float32 q over a bf16 cache; the
+# Granite-MoE prefill (4 x 16 heads of 64); then the reference kernel
+# test's shapes at B x H = 2 x 3
 FLASH_SHAPES = [
     (64, 1000, 1000, 128, True, 'float32', 'float32'),
     (64, 1000, 1000, 128, True, 'bfloat16', 'bfloat16'),
     (64, 1000, 1000, 128, True, 'float32', 'bfloat16'),
+    (64, 1000, 1000, 64, True, 'float32', 'float32'),
     (6, 128, 128, 64, False, 'float32', 'float32'),
     (6, 128, 128, 64, True, 'float32', 'float32'),
     (6, 256, 256, 32, True, 'float32', 'float32'),
@@ -507,9 +546,10 @@ def check_flash(what: str, out, ref, q_dtype) -> float:
     return err
 
 
-def phase_flash(torch, n_layers: int, lm_cfg):
+def phase_flash(torch, n_layers: int, lm_cfgs):
     """Phase 3, flash attention: kernel vs plain at ``FLASH_SHAPES``, with
-    times; then the grouped entry at the prefill's layout.  Returns the
+    times; then the grouped entry at each LM's prefill layout
+    (``lm_cfgs``: InternLM2-1.8B, Granite-MoE).  Returns the InternLM2
     per-prefill summary (``n_layers`` launches at the path shape, the
     first entry)."""
     import ctypes
@@ -567,18 +607,30 @@ def phase_flash(torch, n_layers: int, lm_cfg):
     print(f'[kernels] flash_attention: per prefill ({n_layers} launches at '
           f'{FLASH_SHAPES[0][:4]}): ' + json.dumps(summary))
 
-    # the grouped entry at the prefill's layout: q (B, S, H, d) against the
-    # rows just written into a (B, S + 1, G, d) float32 cache, as they lie
+    # the grouped entry at each prefill's layout: q (B, S, H, d) against
+    # the rows just written into a (B, S + 1, G, d) float32 cache, as they
+    # lie
+    for lm_cfg in lm_cfgs:
+        err = flash_bshd_row(torch, fak, F, gen, lm_cfg)
+        summary['max_abs_err'] = max(summary['max_abs_err'], err)
+    return summary
+
+
+def flash_bshd_row(torch, fak, F, gen, lm_cfg) -> float:
+    """``flash_attention_bshd`` at ``lm_cfg``'s prefill layout, kernel vs
+    plain, with times and the per-prefill total; returns the error."""
     B, S = LM_BATCH, LM_PROMPT
-    H, G, d = lm_cfg.n_heads, lm_cfg.n_kv_heads, lm_cfg.hd
+    H, G, d = (lm_cfg.n_heads, lm_cfg.n_kv_heads * lm_cfg.kv_repeat,
+               lm_cfg.hd)
+    per_prefill = attention_layers(lm_cfg)
     q = torch.randn((B, S, H, d), device='cuda', generator=gen)
     ck, cv = (torch.randn((B, S + 1, G, d), device='cuda', generator=gen)
               for _ in range(2))
     k, v = ck[:, :S], cv[:, :S]
     out = fak.flash_attention_bshd_kernel(q, k, v, causal=True)
     ref = fak.flash_attention_bshd_plain(q, k, v, causal=True)
-    err = check_flash(f'flash_attention_bshd {(B, S, H, G, d)}', out, ref,
-                      'float32')
+    err = check_flash(f'flash_attention_bshd {lm_cfg.name} '
+                      f'{(B, S, H, G, d)}', out, ref, 'float32')
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     try:                # yardstick only: the port never calls it
         library = time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -596,49 +648,90 @@ def phase_flash(torch, n_layers: int, lm_cfg):
            'library_ms': library,
            **flash_bound(fak, q, k, v, B * H, S, S, True)}
     print('[kernels] shape ' + json.dumps(
-        {'kernel': 'flash_attention_bshd', 'shape': [B, S, H, G, d],
-         'cache_rows': S + 1, 'causal': True,
+        {'kernel': 'flash_attention_bshd', 'lm': lm_cfg.name,
+         'shape': [B, S, H, G, d], 'cache_rows': S + 1, 'causal': True,
          'dtypes': ['float32', 'float32'], 'max_abs_err': err,
          'kernel_ms': row['ms'], 'device_ms': row['device_ms'],
          'plain_ms': row['plain_ms'], 'library_ms': row['library_ms'],
          'bound_ms': row['bound_ms'], 'bound_by': row['bound_by'],
          'passes': row['passes'], 'bound_f32_ms': row['bound_f32_ms'],
-         'per_prefill_ms': n_layers * row['ms']}))
-    summary['max_abs_err'] = max(summary['max_abs_err'], err)
-    return summary
+         'per_prefill_launches': per_prefill,
+         **{f'per_prefill_{k}': None if row[k] is None
+            else per_prefill * row[k]
+            for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms')}}))
+    return err
 
 
-def phase_w8a8_lm(torch, cfg):
-    """Phase 3, the W8A8 kernel at the LM's projection shapes: per layer
-    wq (d x H hd), wo (H hd x d), up and gate (d x d_ff), down (d_ff x
-    d); at the prefill (M = batch x prompt) and a decode step (M =
-    batch), with per-forward totals."""
-    d, dq, dff = cfg.d_model, cfg.n_heads * cfg.hd, cfg.d_ff
-    per_layer = collections.Counter([(d, dq), (dq, d), (d, dff), (d, dff),
-                                     (dff, d)])
+def lm_w8a8_shapes(cfg) -> collections.Counter:
+    """(K, N) -> W8A8 launches per forward of ``cfg`` under ``--w8a8``:
+    attention wq, wo; MLA wq, w_dkv, w_kpe, wo (``w_uk``/``w_uv`` stay
+    float); Mamba in_z, in_xbc, in_dt, out_proj; a dense MLP's or the
+    shared experts' up, gate, down (routers and experts stay float)."""
+    from repro_torch.models.transformer import _block_kinds, n_scan_steps
+    d = cfg.d_model
+    per_unit = collections.Counter()
+    for mixer, ffn in _block_kinds(cfg):
+        if mixer == 'A':
+            dq = cfg.n_heads * cfg.hd
+            per_unit.update([(d, dq), (dq, d)])
+        elif mixer == 'L':
+            m, H = cfg.mla, cfg.n_heads
+            per_unit.update([
+                (d, H * (m.qk_nope_head_dim + m.qk_rope_head_dim)),
+                (d, m.kv_lora_rank), (d, m.qk_rope_head_dim),
+                (H * m.v_head_dim, d)])
+        else:
+            s = cfg.ssm
+            di = s.expand * d
+            per_unit.update([(d, di), (d, di + 2 * s.n_groups * s.d_state),
+                             (d, di // s.headdim), (di, d)])
+        ff = 0
+        if ffn == 'D':
+            ff = cfg.d_ff
+        elif ffn == 'E':
+            ff = cfg.moe.n_shared * cfg.moe.d_ff_expert
+        if ff:
+            per_unit.update([(d, ff), (d, ff), (ff, d)])
+    return collections.Counter({k: n * n_scan_steps(cfg)
+                                for k, n in per_unit.items()})
+
+
+def phase_w8a8_lm(torch, cfgs):
+    """Phase 3, the W8A8 kernel at every (K, N) of each LM's w8a8 forward
+    (``lm_w8a8_shapes``), at the prefill (M = batch x prompt) and a decode
+    step (M = batch), bit-exact against the plain version, with
+    per-forward totals; a shape two LMs share is timed once."""
     gen = torch.Generator(device='cuda').manual_seed(2)
-    for label, M in (('prefill', LM_BATCH * LM_PROMPT), ('decode', LM_BATCH)):
-        tot = {'ms': 0.0, 'device_ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0,
-               'library_ms': 0.0, 'wquant_ms': 0.0, 'wquant_kmajor_ms': 0.0}
-        for (K, N), count in sorted(per_layer.items()):
-            row, err = w8a8_row(torch, gen, M, K, N)
-            n = count * cfg.n_layers
-            print('[kernels] shape ' + json.dumps(
-                {'kernel': 'w8a8_matmul', 'shape': [M, K, N],
-                 'per_forward': n, 'max_abs_err': err,
-                 'kernel_ms': row['ms'], 'device_ms': row['device_ms'],
-                 'plain_ms': row['plain_ms'],
-                 'library_ms': row['library_ms'],
-                 'library_shape': [row['library_rows'], K, N],
-                 'bound_ms': row['bound_ms'], 'bound_by': row['bound_by'],
-                 'plan': row['plan'], 'wquant_ms': row['wquant_ms'],
-                 'wquant_kmajor_ms': row['wquant_kmajor_ms']}))
-            for k in tot:
-                tot[k] = (None if tot[k] is None or row[k] is None
-                          else tot[k] + n * row[k])
-        print(f'[kernels] w8a8_matmul: per {cfg.name} {label} forward '
-              f'({sum(per_layer.values()) * cfg.n_layers} launches at M = '
-              f'{M}): ' + json.dumps(tot))
+    rows = {}
+    for cfg in cfgs:
+        per_forward = lm_w8a8_shapes(cfg)
+        for label, M in (('prefill', LM_BATCH * LM_PROMPT),
+                         ('decode', LM_BATCH)):
+            tot = {'ms': 0.0, 'device_ms': 0.0, 'plain_ms': 0.0,
+                   'bound_ms': 0.0, 'library_ms': 0.0, 'wquant_ms': 0.0,
+                   'wquant_kmajor_ms': 0.0}
+            for (K, N), n in sorted(per_forward.items()):
+                if (M, K, N) not in rows:
+                    rows[M, K, N] = w8a8_row(torch, gen, M, K, N)
+                row, err = rows[M, K, N]
+                print('[kernels] shape ' + json.dumps(
+                    {'kernel': 'w8a8_matmul', 'lm': cfg.name,
+                     'shape': [M, K, N], 'per_forward': n,
+                     'max_abs_err': err, 'kernel_ms': row['ms'],
+                     'device_ms': row['device_ms'],
+                     'plain_ms': row['plain_ms'],
+                     'library_ms': row['library_ms'],
+                     'library_shape': [row['library_rows'], K, N],
+                     'bound_ms': row['bound_ms'],
+                     'bound_by': row['bound_by'], 'plan': row['plan'],
+                     'wquant_ms': row['wquant_ms'],
+                     'wquant_kmajor_ms': row['wquant_kmajor_ms']}))
+                for k in tot:
+                    tot[k] = (None if tot[k] is None or row[k] is None
+                              else tot[k] + n * row[k])
+            print(f'[kernels] w8a8_matmul: per {cfg.name} {label} forward '
+                  f'({sum(per_forward.values())} launches at M = {M}): '
+                  + json.dumps(tot))
 
 
 def serve(engine, reqs):
@@ -1080,18 +1173,33 @@ def phase_full_features(torch, numpy, ops, pipe, context, card, normal_ms):
     return launches
 
 
+def attention_layers(cfg) -> int:
+    """GQA sub-layers of the LM: its flash launches per prefill."""
+    from repro_torch.models.transformer import _block_kinds, n_scan_steps
+    return n_scan_steps(cfg) * sum(mixer == 'A'
+                                   for mixer, _ in _block_kinds(cfg))
+
+
 def phase_lm_small(torch, numpy, ops):
-    """Phase 6: the smoke InternLM2 on the card and on the CPU from one
-    seed, a prefill and ``SMALL_LM_STEPS`` decode steps, both fed the
-    CPU's greedy tokens; logits compared at every step."""
+    """Phase 6: the smoke configs of ``SMALL_LM_ARCHS`` (InternLM2, and
+    the MoE, MLA, SSM and hybrid families) on the card and on the CPU
+    from one seed, a prefill and ``SMALL_LM_STEPS`` decode steps, both fed
+    the CPU's greedy tokens; logits compared at every step, and the flash
+    launches per prefill counted."""
+    for arch in SMALL_LM_ARCHS:
+        lm_small(torch, numpy, ops, arch)
+
+
+def lm_small(torch, numpy, ops, arch):
     import copy
     from repro_torch.configs.registry import smoke_config
     from repro_torch.launch.steps import init_params
     from repro_torch.models import transformer as T
-    cfg = smoke_config(LM_ARCH)
+    cfg = smoke_config(arch)
     lms = {'cpu': init_params(torch.Generator().manual_seed(0), cfg, 'cpu')}
     lms['cuda'] = copy.deepcopy(lms['cpu']).to('cuda')
     B, S = 2, 40              # S is not a multiple of the 64-row tile
+    n_attn = attention_layers(cfg)
     tokens = torch.from_numpy(numpy.random.default_rng(3).integers(
         0, cfg.vocab, (B, S)))
     for quant, tol in ((False, LM_SMALL_FP32_ATOL),
@@ -1104,10 +1212,9 @@ def phase_lm_small(torch, numpy, ops):
             logits = {dev: T.lm_prefill(lms[dev], cfg, tokens.to(dev),
                                         caches[dev], dtype=torch.float32,
                                         quant=quant)[0] for dev in lms}
-            check(ops.launch_counts()['flash_attention'] - flash0
-                  == cfg.n_layers, 'small LM prefill: flash launches '
-                  f'{ops.launch_counts()["flash_attention"] - flash0} != '
-                  f'{cfg.n_layers}')
+            flash = ops.launch_counts()['flash_attention'] - flash0
+            check(flash == n_attn, f'small {arch} prefill: flash launches '
+                  f'{flash} != {n_attn}')
             for step in range(SMALL_LM_STEPS + 1):
                 a, b = logits['cuda'].cpu(), logits['cpu']
                 errs.append((a - b).abs().max().item())
@@ -1115,8 +1222,9 @@ def phase_lm_small(torch, numpy, ops):
                 clear = (top2[..., 0] - top2[..., 1]) > tol
                 sure += int(clear.sum())
                 check(bool((a.argmax(-1) == b.argmax(-1))[clear].all()),
-                      f'small LM step {step}: card and CPU pick different '
-                      'tokens where the top-2 margin exceeds the tolerance')
+                      f'small {arch} step {step}: card and CPU pick '
+                      'different tokens where the top-2 margin exceeds the '
+                      'tolerance')
                 if step == SMALL_LM_STEPS:
                     break
                 nxt = b.argmax(-1).to(torch.int32)
@@ -1128,8 +1236,9 @@ def phase_lm_small(torch, numpy, ops):
         print(f'[lm-small] {cfg.name} {"w8a8" if quant else "fp32"}: prefill '
               f'{B}x{S} + {SMALL_LM_STEPS} decode steps, card vs CPU max abs '
               f'logit err {err:.3e} (tol {tol}); tokens agree at all {sure} '
-              'positions with a top-2 margin above it')
-        check(err <= tol, f'small LM: card vs CPU {err} > {tol}')
+              f'positions with a top-2 margin above it; {flash} flash '
+              'launches per prefill')
+        check(err <= tol, f'small {arch}: card vs CPU {err} > {tol}')
 
 
 def record_flash_entries(fak, fn):
@@ -1163,33 +1272,87 @@ def record_flash_entries(fak, fn):
 
 def phase_lm_full(torch, numpy, ops, card):
     """Phase 7: InternLM2-1.8B at full width; the prefill-vs-lm_apply
-    check, then ``serve_lm`` at fp32 and w8a8 with launch counts.
-    Returns the launch counts of the serving runs."""
+    check (w8a8 also within ``LM_FULL_W8A8_RTOL`` of the largest logit),
+    then ``serve_lm`` at fp32 and w8a8 with launch counts.  Returns the
+    launch counts of the serving runs."""
     from repro_torch.configs.registry import get
+    return lm_full(torch, numpy, ops, card, get(LM_ARCH), 'lm-full',
+                   w8a8_rtol=LM_FULL_W8A8_RTOL)
+
+
+def phase_lm_families(torch, numpy, ops, card):
+    """Phase 9: the MoE, MLA and SSM families at full width and depth
+    (Granite-MoE, DeepSeek-V2-Lite, Mamba2), each alone on the card
+    (DeepSeek's 16.21 B float32 parameters, 60.4 GiB, fit an 80 GB card
+    once every earlier model is freed): phase 7's check and ``serve_lm``
+    runs, with the launches held to ``FAMILY_PLAN``.  Returns the launch
+    counts of the serving runs."""
+    from repro_torch.configs.registry import get
+    launches = collections.Counter()
+    for arch, (flash, mm) in FAMILY_PLAN.items():
+        cfg = get(arch)
+        planned = (attention_layers(cfg), sum(lm_w8a8_shapes(cfg).values()))
+        check(planned == (flash, mm),
+              f'{arch}: launches per prefill / w8a8 forward {planned}, '
+              f'plan {(flash, mm)}')
+        gc.collect()          # phase 8's pipeline sits in reference cycles
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated() / 2**30
+        print(f'[lm-family] {arch}: {held:.2f} GiB allocated on the card '
+              'before it is built')
+        t0 = time.perf_counter()
+        launches.update(lm_full(torch, numpy, ops, card, cfg, 'lm-family'))
+        print(f'[lm-family] {arch}: {time.perf_counter() - t0:.1f} s')
+    torch.cuda.empty_cache()
+    return launches
+
+
+def lm_full(torch, numpy, ops, card, cfg, tag, w8a8_rtol=None):
+    """``cfg`` at full width with random weights from seed 0 drawn on the
+    card.  First the check, at fp32 and w8a8: the prefill's last-token
+    logits (the flash kernel on the cache for GQA, the absorbed path for
+    MLA, the chunked SSD for Mamba) against ``lm_apply``'s at the last
+    position (fp32 within ``LM_FULL_FP32_ATOL``; w8a8 within the
+    quantization noise of the run, and ``w8a8_rtol`` of the largest logit
+    where given), with the launches of one prefill and one decode step held
+    to the plan (flash: one per GQA layer per prefill, all through
+    ``flash_attention_bshd`` on the cache, none per decode step; W8A8:
+    ``lm_w8a8_shapes`` per w8a8 forward, the shapes the prefill hands the
+    kernel equal to it).  Then ``serve_lm`` (batch 4, a 1000-token
+    prompt, 32 new tokens, float32) at fp32 and at w8a8, with the
+    launches checked, tokens in the vocabulary, and the prefill seconds,
+    decode tokens/s and peak memory printed.  Returns the launch counts
+    of the serving runs."""
     from repro_torch.launch.serve import serve_lm
     from repro_torch.launch.steps import init_params
     from repro_torch.models import transformer as T
     from repro_torch.kernels import flash_attention as fak
-    cfg = get(LM_ARCH)
     t0 = time.perf_counter()
     lm = init_params(torch.Generator(device='cuda').manual_seed(0), cfg,
                      'cuda')
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in lm.parameters())
-    print(f'[lm-full] {cfg.name}: {n_params:,} parameters drawn on the card '
-          f'from seed 0 in {time.perf_counter() - t0:.1f} s')
+    print(f'[{tag}] {cfg.name}: {n_params:,} parameters '
+          f'({4 * n_params / 2**30:.1f} GiB) drawn on the card from seed 0 '
+          f'in {time.perf_counter() - t0:.1f} s; {cfg.n_layers} layers')
     tokens = torch.from_numpy(numpy.random.default_rng(0).integers(
         0, cfg.vocab, (LM_BATCH, LM_PROMPT))).to('cuda', torch.int32)
-    per_forward_mm = 5 * cfg.n_layers
+    n_attn = attention_layers(cfg)
+    mm_shapes = lm_w8a8_shapes(cfg)
+    per_forward_mm = sum(mm_shapes.values())
     for quant in (False, True):
-        tag = 'w8a8' if quant else 'fp32'
+        qtag = 'w8a8' if quant else 'fp32'
         cache = T.init_lm_cache(cfg, LM_BATCH, LM_PROMPT + 1, torch.float32,
                                 'cuda')
         with torch.no_grad():
             ops.reset_launches()
-            entries = record_flash_entries(fak, lambda: T.lm_prefill(
-                lm, cfg, tokens, cache, dtype=torch.float32, quant=quant))
-            last, cache = entries.pop('result')
+            out = {}
+            shapes = record_shapes(ops, lambda: out.update(
+                record_flash_entries(fak, lambda: T.lm_prefill(
+                    lm, cfg, tokens, cache, dtype=torch.float32,
+                    quant=quant))))
+            last, cache = out.pop('result')
+            entries = out
             pre = ops.launch_counts()
             ops.reset_launches()
             nxt = last.argmax(-1).to(torch.int32)
@@ -1200,31 +1363,47 @@ def phase_lm_full(torch, numpy, ops, card):
             full = T.lm_apply(lm, cfg, tokens, quant=quant)[:, -1]
         diff = last[:, 0] - full
         err = diff.abs().max().item()
+        rel = (diff.norm() / full.norm()).item()
         scale = full.abs().max().item()
-        tol = LM_FULL_W8A8_RTOL * scale if quant else LM_FULL_FP32_ATOL
-        print(f'[lm-full] {tag} check: prefill last-token logits (flash) vs '
-              f'lm_apply (gqa_core): max abs err {err:.3e} (tol {tol:.3e}; '
-              f'max |logit| {scale:.3f}; relative L2 '
-              f'{(diff.norm() / full.norm()).item():.3e}); launches per '
-              f'prefill {pre} (entries {entries}), per decode step {dec}')
+        if quant:
+            noise = full - full_fp32
+            tol = noise.abs().max().item()
+            rel_tol = (noise.norm() / full_fp32.norm()).item()
+            if w8a8_rtol is not None:
+                tol = min(tol, w8a8_rtol * scale)
+        else:
+            tol, rel_tol = LM_FULL_FP32_ATOL, math.inf
+            full_fp32 = full.clone()      # not a view of all the logits
+        print(f'[{tag}] {cfg.name} {qtag} check: prefill last-token logits '
+              f'vs lm_apply: max abs err {err:.3e} (tol {tol:.3e}; max '
+              f'|logit| {scale:.3f}); relative L2 {rel:.3e} (tol '
+              f'{rel_tol:.3e}); launches per prefill {pre} (flash entries '
+              f'{entries}), per decode step {dec}')
         del full
-        check(err <= tol, f'{tag}: prefill vs lm_apply {err} > {tol}')
-        check(pre['flash_attention'] == cfg.n_layers
+        check(err <= tol and rel <= rel_tol, f'{cfg.name} {qtag}: prefill '
+              f'vs lm_apply {err} > {tol} or relative L2 {rel} > {rel_tol}')
+        check(pre['flash_attention'] == n_attn
               and dec['flash_attention'] == 0,
-              f'{tag}: flash launches {pre}, {dec}: want {cfg.n_layers} per '
-              'prefill, 0 per decode step')
-        check(entries == {'bshd': cfg.n_layers, 'bshd_on_cache': cfg.n_layers,
+              f'{cfg.name} {qtag}: flash launches {pre}, {dec}: want '
+              f'{n_attn} per prefill, 0 per decode step')
+        check(entries == {'bshd': n_attn, 'bshd_on_cache': n_attn,
                           'flat': 0},
-              f'{tag}: flash entries per prefill {entries}: want every '
-              'launch through flash_attention_bshd on the cache')
+              f'{cfg.name} {qtag}: flash entries per prefill {entries}: '
+              'want every launch through flash_attention_bshd on the cache')
         want_mm = per_forward_mm if quant else 0
         check(pre['w8a8_matmul'] == want_mm == dec['w8a8_matmul'],
-              f'{tag}: w8a8 launches {pre}, {dec}: want {want_mm} per forward')
+              f'{cfg.name} {qtag}: w8a8 launches {pre}, {dec}: want '
+              f'{want_mm} per forward')
+        got_shapes = collections.Counter(
+            {(K, N): n for (M, K, N), n in shapes['w8a8_matmul'].items()})
+        check(got_shapes == (mm_shapes if quant else {}),
+              f'{cfg.name} {qtag}: W8A8 shapes per prefill {got_shapes}, '
+              f'planned {mm_shapes}')
     torch.cuda.empty_cache()
 
     launches = collections.Counter()
     for quant in (False, True):
-        tag = 'w8a8' if quant else 'fp32'
+        qtag = 'w8a8' if quant else 'fp32'
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launches()              # the LM path's run starts here
@@ -1234,20 +1413,20 @@ def phase_lm_full(torch, numpy, ops, card):
         got = ops.launch_counts()         # ... and ends here
         launches.update(got)
         check(tuple(seqs.shape) == (LM_BATCH, LM_TOKENS)
-              and seqs.dtype == torch.int32, f'{tag}: tokens {seqs.shape} '
-              f'{seqs.dtype}')
+              and seqs.dtype == torch.int32, f'{cfg.name} {qtag}: tokens '
+              f'{seqs.shape} {seqs.dtype}')
         check(0 <= int(seqs.min()) and int(seqs.max()) < cfg.vocab,
-              f'{tag}: token ids outside the vocabulary')
+              f'{cfg.name} {qtag}: token ids outside the vocabulary')
         want_mm = per_forward_mm * LM_TOKENS if quant else 0
-        check(got['flash_attention'] == cfg.n_layers
+        check(got['flash_attention'] == n_attn
               and got['w8a8_matmul'] == want_mm,
-              f'{tag}: launches {got}, want flash {cfg.n_layers} and w8a8 '
-              f'{want_mm}')
-        print(f'[lm-full] {card}: {cfg.name} {tag} serve_lm batch {LM_BATCH},'
-              f' prompt {LM_PROMPT}, {LM_TOKENS} new tokens: prefill '
-              f'{timing["prefill_s"]:.3f} s, decode {LM_TOKENS - 1} steps '
-              f'{timing["decode_s"]:.3f} s = {timing["decode_tok_s"]:.1f} '
-              f'tok/s, peak memory '
+              f'{cfg.name} {qtag}: launches {got}, want flash {n_attn} and '
+              f'w8a8 {want_mm}')
+        print(f'[{tag}] {card}: {cfg.name} {qtag} serve_lm batch '
+              f'{LM_BATCH}, prompt {LM_PROMPT}, {LM_TOKENS} new tokens: '
+              f'prefill {timing["prefill_s"]:.3f} s, decode {LM_TOKENS - 1} '
+              f'steps {timing["decode_s"]:.3f} s = '
+              f'{timing["decode_tok_s"]:.1f} tok/s, peak memory '
               f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, '
               f'launches {got}, tokens[0] {seqs[0, :8].tolist()}')
     return launches
@@ -1429,6 +1608,15 @@ def main() -> int:
     from repro_torch.diffusion.pipeline import DiffusionPipeline
     from repro_torch.kernels import build, ops
 
+    t_start = last = time.perf_counter()
+
+    def lap(phase: str) -> None:
+        nonlocal last
+        now = time.perf_counter()
+        print(f'[time] phase {phase}: {now - last:.1f} s '
+              f'({now - t_start:.1f} s in all)')
+        last = now
+
     # phase 1: device
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1458,6 +1646,7 @@ def main() -> int:
     print(f'[build] flash_attention SASS: {n_hgmma} TF32 wgmma (HGMMA ... '
           'TF32) instructions')
     check(n_hgmma > 0, 'the flash library holds no TF32 wgmma instruction')
+    lap('1-2 (device, build)')
 
     # the full-width model, shared by phases 3 and 5
     t0 = time.perf_counter()
@@ -1474,10 +1663,13 @@ def main() -> int:
     summary, per_eval = phase_kernels(torch, ops, pipe, context)
     check(per_eval['fused_gn_swish'] == 45 and per_eval['w8a8_matmul'] == 128,
           f'SD v1.4 launches per evaluation {per_eval}, expected 45 / 128')
-    summary['flash_attention'] = phase_flash(torch, lm_cfg.n_layers, lm_cfg)
-    phase_w8a8_lm(torch, lm_cfg)
+    summary['flash_attention'] = phase_flash(
+        torch, lm_cfg.n_layers, [lm_cfg, get('granite-moe-1b-a400m')])
+    phase_w8a8_lm(torch, [lm_cfg] + [get(a) for a in FAMILY_PLAN])
+    lap('3 (kernels)')
 
     normal_ms = phase_prng(torch)
+    lap('3b (prng)')
 
     # phase 4: small width, card vs CPU
     phase_small(torch, numpy)
@@ -1485,11 +1677,13 @@ def main() -> int:
     from repro_torch.launch.serve import setup_logging
     setup_logging('info')           # serve_diffusion's [tag] lines
     phase_serve_small(torch, numpy)
+    lap('4 (small width)')
 
     # phase 5: full width through the engine
     launches = collections.Counter(
         phase_full(torch, numpy, ops, pipe, context, per_eval, card))
     print(f'[full] diffusion path launches: {dict(launches)}')
+    lap('5 (full width)')
     feature_launches = phase_full_features(torch, numpy, ops, pipe, context,
                                            card, normal_ms)
     print(f'[features] serving-features run launches: '
@@ -1497,19 +1691,31 @@ def main() -> int:
     launches.update(feature_launches)
     del pipe, context
     torch.cuda.empty_cache()
+    lap('5b (serving features)')
 
     # phase 6: LM small width, card vs CPU
     phase_lm_small(torch, numpy, ops)
+    lap('6 (LM small width)')
 
     # phase 7: LM full width
     lm_launches = phase_lm_full(torch, numpy, ops, card)
     print(f'[lm-full] LM path launches: {dict(lm_launches)}')
     launches.update(lm_launches)
+    lap('7 (LM full width)')
 
     # phase 8: the serving CLI's path at full width
     serve_launches = phase_serve(torch, numpy, ops, card)
     print(f'[serve] serving CLI path launches: {dict(serve_launches)}')
     launches.update(serve_launches)
+    lap('8 (serving CLI)')
+
+    # phase 9: the MoE, MLA and SSM families at full width, every earlier
+    # model freed
+    family_launches = phase_lm_families(torch, numpy, ops, card)
+    print(f'[lm-family] MoE / MLA / SSM path launches: '
+          f'{dict(family_launches)}')
+    launches.update(family_launches)
+    lap('9 (LM families)')
 
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():

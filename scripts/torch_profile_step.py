@@ -4,7 +4,7 @@ port on one GPU.
 
     python3 scripts/torch_profile_step.py [--slots 4] [--ticks 3]
     python3 scripts/torch_profile_step.py --features [--slots 4] [--ticks 3]
-    python3 scripts/torch_profile_step.py --lm [--ticks 3]
+    python3 scripts/torch_profile_step.py --lm [--arch A ...] [--ticks 3]
 
 Diffusion (the default): builds Stable Diffusion v1.4 at full width with
 random weights from seed 0 (no VAE: decode is not part of a denoise
@@ -14,13 +14,16 @@ of one (precision, guidance) mix, and profiles ``--ticks`` steady ticks.
 of ``w8a8+noise`` requests (a noisy full step each), then a DeepCache
 engine (cadence 3) of w8a8 requests, one refresh tick and two skip
 ticks.
-``--lm``: builds InternLM2-1.8B with random weights from seed 0 and
-profiles, at fp32 and w8a8, one prefill of ``serve_lm``'s traffic (batch
-4, a 1000-token prompt, float32 activations and cache) and ``--ticks``
-decode steps after it.  For each it prints, from ``torch.profiler``, the
-host wall time per step (synchronised), the summed kernel time, the
-device idle share (1 - kernel time / wall), the time per kernel family,
-and the heaviest kernels.  Needs a GPU.
+``--lm``: builds each ``--arch`` in turn (default InternLM2-1.8B; the
+MoE, MLA and SSM families too: granite-moe-1b-a400m,
+deepseek-v2-lite-16b, mamba2-2.7b) at full width with random weights
+from seed 0, freeing the one before, and profiles, at fp32 and w8a8, one
+prefill of ``serve_lm``'s traffic (batch 4, a 1000-token prompt, float32
+activations and cache) and ``--ticks`` decode steps after it.  For each
+it prints, from ``torch.profiler``, the host wall time per step
+(synchronised), the summed kernel time, the device idle share (1 -
+kernel time / wall), the time per kernel family, and the heaviest
+kernels.  Needs a GPU.
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ FAMILIES = (                       # first match wins, on the kernel name
     ('convolution', ('conv', 'implicit', 'wgrad', 'dgrad', 'winograd',
                      'fft')),
     ('matmul', ('gemm', 'cutlass', 'sm90_xmma', 'ampere', 'cublas')),
+    ('sort / scan', ('sort', 'radix', 'scan')),
     ('reduction', ('reduce', 'norm')),
     ('elementwise', ('elementwise', 'vectorized', 'unrolled', 'copy',
                      'fill', 'where', 'index', 'cat')),
@@ -86,11 +90,11 @@ def profile_steps(torch, title: str, step, n: int) -> None:
         print(f'    {ms:8.3f} ms  {name[:90]}')
 
 
-def profile_lm(torch, card: str, decode_steps: int) -> None:
+def profile_lm(torch, card: str, arch: str, decode_steps: int) -> None:
     import numpy as np
     from repro_torch.configs.registry import get
     from repro_torch.launch import steps as ST
-    cfg = get('internlm2-1.8b')
+    cfg = get(arch)
     batch, prompt = 4, 1000
     lm = ST.init_params(torch.Generator(device='cuda').manual_seed(0), cfg,
                         'cuda')
@@ -152,7 +156,10 @@ def main() -> int:
     ap.add_argument('--slots', type=int, default=4)
     ap.add_argument('--ticks', type=int, default=3)
     ap.add_argument('--lm', action='store_true',
-                    help='profile InternLM2-1.8B prefill and decode')
+                    help='profile LM prefill and decode (see --arch)')
+    ap.add_argument('--arch', action='append', default=None,
+                    help='with --lm: the LM to profile, repeatable '
+                         '(default internlm2-1.8b)')
     ap.add_argument('--features', action='store_true',
                     help='profile noisy, DeepCache refresh and skip ticks')
     args = ap.parse_args()
@@ -172,7 +179,9 @@ def main() -> int:
                           text=True, check=True).stdout.strip()
     print(card)
     if args.lm:
-        profile_lm(torch, card, args.ticks)
+        for arch in args.arch or ['internlm2-1.8b']:
+            profile_lm(torch, card, arch, args.ticks)
+            torch.cuda.empty_cache()
         return 0
     pipe = DiffusionPipeline.init(0, SD_V1_4, device='cuda')
     ctx = torch.randn((args.slots, 77, SD_V1_4.context_dim),

@@ -50,11 +50,14 @@ def load_jax_params(module: nn.Module, tree: Any) -> nn.Module:
 
 def load_jax_lm_params(module: nn.Module, tree: Any) -> nn.Module:
     """Copy the reference LM tree into an LM module.  The reference stacks
-    the block params on a leading layer axis (``blocks.sub0.attn.wq.w``
-    of shape ``(n_layers, d, d)``); every leaf under ``blocks`` is
-    unstacked into ``blocks.{i}.sub0...``.  Strict, as
+    the params of its scanned units on a leading axis of ``n_scan_steps``
+    (``blocks.sub0.attn.wq.w`` of shape ``(steps, d, d)``; a hybrid's unit
+    holds several sub-layers, so Jamba's 72 layers are 9 units); every
+    leaf under ``blocks`` is unstacked into ``blocks.{i}.sub{j}...``, so
+    the expert weights ``(steps, E, d, ff)`` reach ``_load_flat`` 3-D and
+    load as they are (only a 4-D leaf is a conv kernel).  Strict, as
     ``load_jax_params``; a leaf whose leading axis is not the module's
-    layer count raises."""
+    unit count raises."""
     flat: Dict[str, Any] = {}
     _flatten(tree, '', flat)
     n = len(module.blocks)
@@ -68,7 +71,8 @@ def load_jax_lm_params(module: nn.Module, tree: Any) -> nn.Module:
                  if _is_qtensor(leaf) else (np.asarray(leaf),))
         if any(a.shape[:1] != (n,) for a in parts):
             raise ValueError(f'{key}: leading axis {parts[0].shape[:1]} is '
-                             f'not the {n} layers of the module')
+                             f'not the {n} scanned units (n_layers / '
+                             'sub-layers per unit) of the module')
         for i in range(n):
             out[f'blocks.{i}.{rest}'] = (
                 types.SimpleNamespace(q=parts[0][i], scale=parts[1][i])

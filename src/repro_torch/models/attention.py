@@ -1,6 +1,7 @@
-"""Grouped-query attention with RoPE and a KV cache, port of
-``repro/models/attention.py`` for the dense LM family (MLA waits for its
-slice, ROADMAP Queue 1 item 7b).
+"""Attention, port of ``repro/models/attention.py``: grouped-query
+attention with RoPE and a KV cache, and MLA (DeepSeek-V2's multi-head
+latent attention) with its compressed cache.  M-RoPE comes with the VLM
+slice (ROADMAP Queue 1 item 7e).
 
 Paper hooks, as in the reference: C2, the softmax always goes through
 the LSE decomposition (``gqa_core``: grouped einsum + ``lse_softmax``;
@@ -18,6 +19,14 @@ reference's ``gqa_core`` over the whole cache, whose rows past S weigh
 ``gqa_core`` over the whole cache, as in the reference.  The cache is
 updated in place and the same dict comes back as the new cache (the
 reference returns an updated copy).
+
+MLA keeps both of the reference's paths.  Without a cache it decompresses
+K and V from the latent ``c_kv``; with a cache (the prefill, whose
+``cache_pos`` is 0, and every decode step) it runs the absorbed path:
+q is projected into the latent space, and the cache holds only ``c_kv``
+and the shared RoPE key ``k_pe``.  Its scores go through ``lse_softmax``
+as in the reference; the flash kernel does not fit it (q/k heads of
+``nope + rope`` = 192 against 128 for v; absorbed keys 576 wide).
 """
 from __future__ import annotations
 
@@ -28,6 +37,7 @@ import torch.nn as nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.lse_softmax import lse_softmax
+from repro_torch.core.quantization import QTensor
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
@@ -179,3 +189,101 @@ def init_attention_cache(cfg: ArchConfig, batch: int, max_len: int,
     shape = (batch, max_len, cfg.n_kv_heads * cfg.kv_repeat, cfg.hd)
     return {'k': torch.zeros(shape, dtype=dtype, device=device),
             'v': torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): compressed KV cache
+# ---------------------------------------------------------------------------
+
+class MLA(nn.Module):
+    """The reference's ``init_mla`` params: ``wq`` (all heads' nope + rope
+    dims), the latent down-projection ``w_dkv`` and its ``kv_norm``, the
+    shared RoPE key ``w_kpe``, the up-projections ``w_uk`` / ``w_uv`` and
+    ``wo``; no biases."""
+
+    def __init__(self, cfg: ArchConfig, device=None):
+        super().__init__()
+        m, d, H = cfg.mla, cfg.d_model, cfg.n_heads
+        nope, rpe = m.qk_nope_head_dim, m.qk_rope_head_dim
+        rank = m.kv_lora_rank
+        self.wq = L.Linear(d, H * (nope + rpe), False, device)
+        self.w_dkv = L.Linear(d, rank, False, device)
+        self.w_kpe = L.Linear(d, rpe, False, device)
+        self.w_uk = L.Linear(rank, H * nope, False, device)
+        self.w_uv = L.Linear(rank, H * m.v_head_dim, False, device)
+        self.wo = L.Linear(H * m.v_head_dim, d, False, device)
+        self.kv_norm = L.RMSNorm(rank, device)
+
+
+def _raw(lin: L.Linear) -> torch.Tensor:
+    """A Linear's weight as float32, dequantizing a serve-time QWeight."""
+    w = lin.weight
+    return w.q.float() * w.scale if isinstance(w, QTensor) else w.float()
+
+
+def mla_attention(p: MLA, cfg: ArchConfig, x: torch.Tensor, *,
+                  cache: Optional[Dict[str, torch.Tensor]] = None,
+                  cache_pos: Optional[int] = None,
+                  quant: bool = False
+                  ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """One MLA layer; returns (out, new_cache).  Positions count from
+    ``cache_pos`` (0 without a cache).  Without a cache: the decompressed
+    path.  With one (prefill or decode): ``c_kv`` and ``k_pe`` are written
+    at ``cache_pos``, in place, and the absorbed path attends over the
+    whole cache, rows past ``cache_pos + S`` masked."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    nope, rpe, vd, rank = (m.qk_nope_head_dim, m.qk_rope_head_dim,
+                           m.v_head_dim, m.kv_lora_rank)
+    start = 0 if cache_pos is None else cache_pos
+    pos = torch.arange(start, start + S, device=x.device)[None, :]
+    pos = pos.expand(B, S)
+    pol = 'w8a8' if quant else None
+    q = p.wq(x, pol).reshape(B, S, H, nope + rpe)
+    q_nope = q[..., :nope].float()
+    q_pe = rope(q[..., nope:], pos, cfg.rope_theta).float()
+    c_kv = L.rmsnorm(p.kv_norm, p.w_dkv(x, pol))
+    k_pe = rope(p.w_kpe(x, pol)[:, :, None, :], pos,
+                cfg.rope_theta)[:, :, 0, :]               # (B, S, rpe)
+    scale = (nope + rpe) ** -0.5
+
+    if cache is not None and cache_pos is not None:      # absorbed path
+        cc, cp = cache['c_kv'], cache['k_pe']
+        cc[:, cache_pos:cache_pos + S] = c_kv.to(cc.dtype)
+        cp[:, cache_pos:cache_pos + S] = k_pe.to(cp.dtype)
+        T = cc.shape[1]
+        ccf = cc.float()
+        # q_nope' = q_nope @ W_uk^T: the query in the latent space
+        q_lat = torch.einsum('bshn,rhn->bshr', q_nope,
+                             _raw(p.w_uk).reshape(rank, H, nope))
+        s = (torch.einsum('bshr,btr->bhst', q_lat, ccf)
+             + torch.einsum('bshp,btp->bhst', q_pe, cp.float())) * scale
+        t_pos = torch.arange(T, device=x.device)
+        q_pos = torch.arange(S, device=x.device) + cache_pos
+        mask = (t_pos[None, :] <= q_pos[:, None]) & \
+            (t_pos[None, :] < cache_pos + S)
+        pr = lse_softmax(torch.where(mask, s, NEG_INF), dim=-1)
+        o_lat = torch.einsum('bhst,btr->bshr', pr, ccf)
+        out = torch.einsum('bshr,rhv->bshv', o_lat,
+                           _raw(p.w_uv).reshape(rank, H, vd))
+    else:                                                # decompressed
+        k_nope = p.w_uk(c_kv).reshape(B, S, H, nope)
+        vv = p.w_uv(c_kv).reshape(B, S, H, vd)
+        s = (torch.einsum('bshn,bthn->bhst', q_nope, k_nope.float())
+             + torch.einsum('bshp,btp->bhst', q_pe, k_pe.float())) * scale
+        mask = torch.ones((S, S), dtype=torch.bool, device=x.device).tril()
+        pr = lse_softmax(torch.where(mask, s, NEG_INF), dim=-1)
+        out = torch.einsum('bhst,bthv->bshv', pr, vv.float())
+    y = p.wo(out.to(x.dtype).reshape(B, S, H * vd), pol)
+    return y, cache
+
+
+def init_mla_cache(cfg: ArchConfig, batch: int, max_len: int,
+                   dtype: torch.dtype = torch.bfloat16,
+                   device=None) -> Dict[str, torch.Tensor]:
+    m = cfg.mla
+    return {'c_kv': torch.zeros((batch, max_len, m.kv_lora_rank),
+                                dtype=dtype, device=device),
+            'k_pe': torch.zeros((batch, max_len, m.qk_rope_head_dim),
+                                dtype=dtype, device=device)}

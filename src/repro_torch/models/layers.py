@@ -162,7 +162,9 @@ def pad_vocab(vocab: int, multiple: int) -> int:
 # parameter holders
 # ---------------------------------------------------------------------------
 
-def _empty(shape, device, dtype=torch.float32):
+def empty_param(shape, device, dtype=torch.float32) -> nn.Parameter:
+    """An uninitialised float32 parameter (no gradient): ``init_params``
+    or a checkpoint load fills it."""
     return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
                         requires_grad=False)
 
@@ -199,8 +201,8 @@ class Linear(nn.Module):
     def __init__(self, d_in: int, d_out: int, bias: bool = True, device=None,
                  stddev: Optional[float] = None):
         super().__init__()
-        self.w = _empty((d_in, d_out), device)
-        self.b = _empty((d_out,), device) if bias else None
+        self.w = empty_param((d_in, d_out), device)
+        self.b = empty_param((d_out,), device) if bias else None
         self.stddev = stddev
 
     @property
@@ -221,8 +223,8 @@ class Conv(nn.Module):
     def __init__(self, kh: int, kw: int, c_in: int, c_out: int,
                  bias: bool = True, device=None):
         super().__init__()
-        self.w = _empty((c_out, c_in, kh, kw), device)
-        self.b = _empty((c_out,), device) if bias else None
+        self.w = empty_param((c_out, c_in, kh, kw), device)
+        self.b = empty_param((c_out,), device) if bias else None
 
     def forward(self, x, stride: int = 1):
         return conv2d(x, self.w, self.b, stride)
@@ -231,8 +233,8 @@ class Conv(nn.Module):
 class GroupNorm(nn.Module):
     def __init__(self, channels: int, device=None):
         super().__init__()
-        self.scale = _empty((channels,), device)
-        self.bias = _empty((channels,), device)
+        self.scale = empty_param((channels,), device)
+        self.bias = empty_param((channels,), device)
 
     def forward(self, x, groups: int):
         return groupnorm(x, self.scale, self.bias, groups)
@@ -241,20 +243,20 @@ class GroupNorm(nn.Module):
 class Embedding(nn.Module):
     def __init__(self, vocab: int, d: int, device=None):
         super().__init__()
-        self.table = _empty((vocab, d), device)
+        self.table = empty_param((vocab, d), device)
 
 
 class RMSNorm(nn.Module):
     def __init__(self, d: int, device=None):
         super().__init__()
-        self.scale = _empty((d,), device)
+        self.scale = empty_param((d,), device)
 
 
 class LayerNorm(nn.Module):
     def __init__(self, d: int, device=None):
         super().__init__()
-        self.scale = _empty((d,), device)
-        self.bias = _empty((d,), device)
+        self.scale = empty_param((d,), device)
+        self.bias = empty_param((d,), device)
 
 
 class MLP(nn.Module):
@@ -270,10 +272,14 @@ class MLP(nn.Module):
 def init_params(module: nn.Module, generator: torch.Generator) -> None:
     """The reference's initialisation, drawn from ``generator``: fan-in
     uniform weights (normal with stddev 0.02 for embedding tables and
-    ``Linear``s given a ``stddev``), zero biases, unit norm scales.
-    Parameters are visited in registration order, so a seed fixes every
-    value."""
+    ``Linear``s given a ``stddev``), zero biases, unit norm scales.  A
+    module that holds parameters of its own beside its sub-modules (the
+    MoE experts, the Mamba mixer's convolution and SSM constants) sets
+    them in its ``init_own_(generator)``.  Modules are visited in
+    registration order, so a seed fixes every value."""
     for m in module.modules():
+        if hasattr(m, 'init_own_'):
+            m.init_own_(generator)
         if isinstance(m, (GroupNorm, LayerNorm, RMSNorm)):
             m.scale.fill_(1.0)
             if not isinstance(m, RMSNorm):

@@ -1,0 +1,141 @@
+"""Mixture-of-Experts FFN, port of ``repro/models/moe.py``: a top-k
+router, capacity-based dispatch into per-expert buffers, the experts'
+products, and the weighted combine.
+
+Tokens go through ``G`` independent dispatch groups, as in the reference
+(whose groups shard over the data axis and whose dispatch runs under
+``vmap``); the port runs the groups batched.  The dispatch is exact
+integer bookkeeping, step for step the reference's: top-k with the lower
+expert index first on ties, a token's rank within its expert from a
+stable sort, per-group capacity ``C``, and tokens past ``C`` dropped.
+FLOPs are honest: ``E*C*d*ff`` with ``E*C ~= T*k*cf``, no dense
+all-experts fallback.
+
+The router and the experts stay float under ``quant``, as in the
+reference; only the shared experts' MLP runs on the W8A8 kernel.
+``router_aux_loss`` (training) comes with the training slice.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn as nn
+
+from repro_torch.configs.base import ArchConfig, MoEConfig
+from repro_torch.core.quantization import QTensor
+from repro_torch.models import layers as L
+
+
+def _wt(w, dtype: torch.dtype) -> torch.Tensor:
+    """Expert weight -> compute dtype, dequantizing a QTensor.  In the
+    weight's own dtype this is the weight itself, not a copy."""
+    if isinstance(w, QTensor):
+        return (w.q.float() * w.scale).to(dtype)
+    return w.to(dtype)
+
+
+class MoE(nn.Module):
+    """The reference's ``init_moe`` params: ``router`` (normal, stddev
+    0.02), ``w_gate`` / ``w_up`` ``(E, d, ff)`` and ``w_down`` ``(E, ff,
+    d)`` (normal, stddev 0.02), and ``shared``, a gated MLP of width
+    ``n_shared * ff``, when the config has shared experts."""
+
+    def __init__(self, cfg: ArchConfig, device=None):
+        super().__init__()
+        m = cfg.moe
+        d, ff, E = cfg.d_model, m.d_ff_expert, m.n_experts
+        self.router = L.Linear(d, E, bias=False, device=device, stddev=0.02)
+        self.w_gate = L.empty_param((E, d, ff), device)
+        self.w_up = L.empty_param((E, d, ff), device)
+        self.w_down = L.empty_param((E, ff, d), device)
+        self.shared = (L.MLP(d, m.n_shared * ff, gated=True, bias=False,
+                             device=device) if m.n_shared else None)
+
+    def init_own_(self, generator: torch.Generator) -> None:
+        for w in (self.w_gate, self.w_up, self.w_down):
+            w.normal_(0.0, 0.02, generator=generator)
+
+
+def _dispatch_indices(expert_ids: torch.Tensor, E: int,
+                      C: int) -> torch.Tensor:
+    """expert_ids (..., T, k) -> flat slot index (..., T, k) into an
+    ``(E*C,)`` buffer per leading index; a token past its expert's
+    capacity gets slot ``E*C`` (dropped).
+
+    A token's rank within its expert: sort the flattened assignments by
+    expert id, stably; the rank is the sorted position minus the first
+    position of that expert."""
+    *lead, T, k = expert_ids.shape
+    flat = expert_ids.reshape(*lead, T * k)
+    sorted_e, order = torch.sort(flat, dim=-1, stable=True)
+    first = torch.searchsorted(sorted_e, sorted_e, side='left')
+    rank_sorted = torch.arange(T * k, device=flat.device) - first
+    rank = torch.empty_like(rank_sorted).scatter_(-1, order, rank_sorted)
+    slot = torch.where(rank < C, flat * C + rank, E * C)
+    return slot.reshape(*lead, T, k)
+
+
+def _top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k``: the k largest along the last axis, the lower
+    index first among equal values (a stable descending sort)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _dispatch(x: torch.Tensor, p: MoE, m: MoEConfig, C: int):
+    """Dispatch groups x (G, T, d) -> (buf (G, E, C, d), slot (G, T, k),
+    top_p (G, T, k)); the scatter stays within each group."""
+    G, T, d = x.shape
+    E, k = m.n_experts, m.top_k
+    probs = torch.softmax(p.router(x.float()), dim=-1)
+    top_p, top_e = _top_k(probs, k)
+    if m.router_normalize:
+        top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+    slot = _dispatch_indices(top_e, E, C)
+    # one buffer of E*C + 1 rows per group; the last row takes the dropped
+    # tokens (the reference's out-of-range ``mode='drop'``) and is cut off
+    rows = E * C + 1
+    idx = slot + rows * torch.arange(G, device=x.device)[:, None, None]
+    buf = x.new_zeros((G * rows, d))
+    buf.index_add_(0, idx.reshape(-1),
+                   x.repeat_interleave(k, dim=1).reshape(-1, d))
+    return buf.reshape(G, rows, d)[:, :E * C].reshape(G, E, C, d), slot, \
+        top_p
+
+
+def _combine(y_buf: torch.Tensor, slot: torch.Tensor, top_p: torch.Tensor,
+             dtype: torch.dtype) -> torch.Tensor:
+    """y_buf (G, E, C, d) -> (G, T, d): each token's expert outputs,
+    weighted by its top-k probabilities; a dropped slot contributes 0."""
+    G, E, C, d = y_buf.shape
+    T, k = slot.shape[1:]
+    flat = slot.reshape(G, T * k)
+    rows = torch.arange(G, device=slot.device)[:, None]
+    y_tok = y_buf.reshape(G, E * C, d)[rows, flat.clamp(0, E * C - 1)]
+    y_tok = torch.where((flat < E * C)[..., None], y_tok, 0.0)
+    return torch.einsum('gtkd,gtk->gtd', y_tok.reshape(G, T, k, d),
+                        top_p.to(dtype))
+
+
+def moe_ffn(p: MoE, cfg: ArchConfig, x: torch.Tensor,
+            quant: bool = False) -> torch.Tensor:
+    """x (B, S, d) -> (B, S, d)."""
+    m = cfg.moe
+    B, S, d = x.shape
+    T = B * S
+    G = min(cfg.moe_groups, T)
+    while T % G:
+        G -= 1
+    Tg = T // G
+    C = max(1, int(Tg * m.top_k * m.capacity_factor / m.n_experts))
+    C = -(-C // 8) * 8          # the reference's lane-friendly multiple
+    act = L.ACTIVATIONS[cfg.act]
+    buf, slot, top_p = _dispatch(x.reshape(G, Tg, d), p, m, C)
+    h = act(torch.einsum('gecd,edf->gecf', buf, _wt(p.w_gate, x.dtype))) \
+        * torch.einsum('gecd,edf->gecf', buf, _wt(p.w_up, x.dtype))
+    y_buf = torch.einsum('gecf,efd->gecd', h, _wt(p.w_down, x.dtype))
+    y = _combine(y_buf, slot, top_p, x.dtype).reshape(B, S, d)
+    if p.shared is not None:
+        y = y + L.mlp(p.shared, x, act=cfg.act, quant=quant)
+    return y

@@ -1,13 +1,20 @@
-"""Decoder-only LM, dense family: port of ``repro/models/transformer.py``.
+"""Decoder-only LM covering the dense, MoE, SSM and hybrid families:
+port of ``repro/models/transformer.py``.
 
-The reference stacks the block params on a leading layer axis and scans
-them; the port keeps the blocks in an ``nn.ModuleList`` and loops, so
-its ``state_dict`` keys are ``blocks.{i}.sub0...`` where the reference
-has ``blocks.sub0...`` with that axis (``bridge.load_jax_lm_params``
-unstacks it).  The KV cache is a list with one ``{'sub0': {'k', 'v'}}``
-per layer, updated in place.  The other families raise at ``init_lm``,
-naming the ROADMAP item that ports them; ``lm_loss`` waits for the
-training slice.
+The reference stacks the params of its scanned units on a leading axis
+and scans them; the port keeps the units in an ``nn.ModuleList`` and
+loops.  A unit (``Block``) holds one sub-layer per ``(mixer, ffn)`` kind
+of ``_block_kinds``: one for the dense (``A``/``D``), MoE (``A``/``E``),
+MLA (``L``/``E``) and SSM (``M``/``-``) families, and the unrolled
+pattern of a hybrid super-block (Jamba: 8, attention at position 3, the
+MoE FFN on odd positions).  So the ``state_dict`` keys are
+``blocks.{i}.sub{j}...`` where the reference has ``blocks.sub{j}...``
+with the leading axis of ``n_scan_steps`` units
+(``bridge.load_jax_lm_params`` unstacks it).  The cache is a list with
+one ``{'sub{j}': ...}`` per unit (GQA ``k``/``v``, MLA ``c_kv``/``k_pe``,
+Mamba ``conv``/``state``), updated in place.  The encoder-decoder and
+VLM families raise at ``init_lm``, naming the ROADMAP item that ports
+them; ``lm_loss`` waits for the training slice.
 """
 from __future__ import annotations
 
@@ -18,8 +25,11 @@ import torch.nn as nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
-from repro_torch.models.attention import (Attention, attention,
-                                          init_attention_cache)
+from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
+from repro_torch.models.attention import (MLA, Attention, attention,
+                                          init_attention_cache,
+                                          init_mla_cache, mla_attention)
 
 NORMS = {'rmsnorm': (L.RMSNorm, L.rmsnorm),
          'layernorm': (L.LayerNorm, L.layernorm)}
@@ -27,54 +37,108 @@ NORMS = {'rmsnorm': (L.RMSNorm, L.rmsnorm),
 
 def _check_ported(cfg: ArchConfig) -> None:
     missing = []
-    if cfg.moe is not None or cfg.family == 'moe':
-        missing.append('MoE (ROADMAP Queue 1 item 7a)')
-    if cfg.mla is not None:
-        missing.append('MLA (item 7b)')
-    if cfg.ssm is not None or cfg.family in ('ssm', 'hybrid'):
-        missing.append('SSM / hybrid (item 7c)')
     if cfg.family == 'encdec':
         missing.append('encoder-decoder (item 7d)')
     if cfg.family == 'vlm' or cfg.rope == 'mrope':
         missing.append('M-RoPE / VLM (item 7e)')
     if missing:
-        raise NotImplementedError(f'{cfg.name}: the port has the dense LM '
-                                  'family only; not yet ported: '
+        raise NotImplementedError(f'{cfg.name}: the port has the decoder-'
+                                  'only LM families; not yet ported: '
                                   + ', '.join(missing))
 
 
-class _SubLayer(nn.Module):
-    """The reference's ``sub0``: attention and a dense MLP, each behind
-    its norm."""
+def _block_kinds(cfg: ArchConfig):
+    """Per-sub-layer (mixer, ffn) kinds within one scanned unit: mixer
+    ``A`` attention, ``L`` MLA, ``M`` Mamba; ffn ``D`` dense MLP, ``E``
+    MoE, ``-`` none."""
+    if cfg.family == 'hybrid':
+        return tuple(zip(cfg.hybrid_block, cfg.hybrid_ffn))
+    if cfg.family == 'ssm':
+        return (('M', '-'),)
+    mixer = 'L' if cfg.mla is not None else 'A'
+    ffn = 'E' if (cfg.moe is not None and cfg.moe.every == 1) else 'D'
+    return ((mixer, ffn),)
 
-    def __init__(self, cfg: ArchConfig, device=None):
+
+def n_scan_steps(cfg: ArchConfig) -> int:
+    return cfg.n_layers // len(_block_kinds(cfg))
+
+
+class _SubLayer(nn.Module):
+    """One sub-layer: its mixer (``attn`` or ``mamba``) behind
+    ``mix_norm``, and its FFN (``mlp`` or ``moe``) behind ``ffn_norm``."""
+
+    def __init__(self, cfg: ArchConfig, mixer: str, ffn: str, device=None):
         super().__init__()
         norm = NORMS[cfg.norm][0]
         self.mix_norm = norm(cfg.d_model, device)
-        self.attn = Attention(cfg, device)
-        self.ffn_norm = norm(cfg.d_model, device)
-        self.mlp = L.MLP(cfg.d_model, cfg.d_ff,
-                         gated=cfg.act in ('swish', 'silu'),
-                         bias=cfg.mlp_bias, device=device)
+        if mixer == 'A':
+            self.attn = Attention(cfg, device)
+        elif mixer == 'L':
+            self.attn = MLA(cfg, device)
+        else:
+            self.mamba = SSM.Mamba(cfg, device)
+        if ffn != '-':
+            self.ffn_norm = norm(cfg.d_model, device)
+        if ffn == 'D':
+            self.mlp = L.MLP(cfg.d_model, cfg.d_ff,
+                             gated=cfg.act in ('swish', 'silu'),
+                             bias=cfg.mlp_bias, device=device)
+        elif ffn == 'E':
+            self.moe = MOE.MoE(cfg, device)
 
 
 class Block(nn.Module):
+    """One scanned unit: sub-layers ``sub0 .. sub{n-1}``."""
+
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
-        self.sub0 = _SubLayer(cfg, device)
+        for i, (mixer, ffn) in enumerate(_block_kinds(cfg)):
+            self.add_module(f'sub{i}', _SubLayer(cfg, mixer, ffn, device))
 
 
 def apply_block(p: Block, cfg: ArchConfig, x: torch.Tensor, *,
                 cache: Optional[Dict] = None, cache_pos: Optional[int] = None,
                 quant: bool = False):
     norm = NORMS[cfg.norm][1]
-    sub = p.sub0
-    h, nc = attention(sub.attn, cfg, norm(sub.mix_norm, x),
-                      cache=None if cache is None else cache['sub0'],
-                      cache_pos=cache_pos, quant=quant)
-    x = x + h
-    x = x + L.mlp(sub.mlp, norm(sub.ffn_norm, x), act=cfg.act, quant=quant)
-    return x, (None if cache is None else {'sub0': nc})
+    for i, (mixer, ffn) in enumerate(_block_kinds(cfg)):
+        sub = getattr(p, f'sub{i}')
+        sub_cache = None if cache is None else cache[f'sub{i}']
+        h = norm(sub.mix_norm, x)
+        if mixer == 'A':
+            h, _ = attention(sub.attn, cfg, h, cache=sub_cache,
+                             cache_pos=cache_pos, quant=quant)
+        elif mixer == 'L':
+            h, _ = mla_attention(sub.attn, cfg, h, cache=sub_cache,
+                                 cache_pos=cache_pos, quant=quant)
+        else:
+            h, _ = SSM.mamba(sub.mamba, cfg, h, cache=sub_cache, quant=quant)
+        x = x + h
+        if ffn != '-':
+            h = norm(sub.ffn_norm, x)
+            if ffn == 'E':
+                h = MOE.moe_ffn(sub.moe, cfg, h, quant=quant)
+            else:
+                h = L.mlp(sub.mlp, h, act=cfg.act, quant=quant)
+            x = x + h
+    return x, cache
+
+
+def init_block_cache(cfg: ArchConfig, batch: int, max_len: int,
+                     dtype: torch.dtype = torch.bfloat16,
+                     device=None) -> Dict[str, Dict[str, torch.Tensor]]:
+    """One unit's cache.  The Mamba cache is float32 whatever ``dtype``
+    is, as the reference's ``init_mamba_cache`` default."""
+    c = {}
+    for i, (mixer, _) in enumerate(_block_kinds(cfg)):
+        if mixer == 'A':
+            c[f'sub{i}'] = init_attention_cache(cfg, batch, max_len, dtype,
+                                                device)
+        elif mixer == 'L':
+            c[f'sub{i}'] = init_mla_cache(cfg, batch, max_len, dtype, device)
+        else:
+            c[f'sub{i}'] = SSM.init_mamba_cache(cfg, batch, device=device)
+    return c
 
 
 class LM(nn.Module):
@@ -83,7 +147,7 @@ class LM(nn.Module):
         _check_ported(cfg)
         self.embed = L.Embedding(cfg.vocab, cfg.d_model, device)
         self.blocks = nn.ModuleList(Block(cfg, device)
-                                    for _ in range(cfg.n_layers))
+                                    for _ in range(n_scan_steps(cfg)))
         self.final_norm = NORMS[cfg.norm][0](cfg.d_model, device)
         self.lm_head = None if cfg.tie_embeddings else L.Linear(
             cfg.d_model, cfg.vocab, bias=False, device=device, stddev=0.02)
@@ -128,9 +192,8 @@ def lm_apply(p: LM, cfg: ArchConfig, tokens: torch.Tensor, *,
 def init_lm_cache(cfg: ArchConfig, batch: int, max_len: int,
                   dtype: torch.dtype = torch.bfloat16,
                   device=None) -> List[Dict[str, Dict[str, torch.Tensor]]]:
-    return [{'sub0': init_attention_cache(cfg, batch, max_len, dtype,
-                                          device)}
-            for _ in range(cfg.n_layers)]
+    return [init_block_cache(cfg, batch, max_len, dtype, device)
+            for _ in range(n_scan_steps(cfg))]
 
 
 def lm_prefill(p: LM, cfg: ArchConfig, tokens: torch.Tensor, cache, *,

@@ -386,3 +386,70 @@ def test_attention_rejects_unknown_impl():
     _, tcfg, _, tp = _layer('internlm2-1.8b')
     with pytest.raises(ValueError, match='impl'):
         TA.attention(tp, tcfg, torch.zeros(1, 2, tcfg.d_model), impl='tpu')
+
+
+# ---------------------------------------------------------------------------
+# MLA: the decompressed path (no cache) and the absorbed one (cache)
+# ---------------------------------------------------------------------------
+
+def _mla_layer(quantize=()):
+    """The smoke DeepSeek-V2-Lite MLA layer from the reference's params;
+    the projections in ``quantize`` become serve-time QTensors in the
+    reference tree, loaded as the port's QWeights."""
+    import jax
+    from repro.core.quantization import quantize_per_channel
+    jcfg = jreg.smoke_config('deepseek-v2-lite-16b')
+    tcfg = treg.smoke_config('deepseek-v2-lite-16b')
+    jp = JA.init_mla(jax.random.PRNGKey(5), jcfg)
+    for name in quantize:
+        jp[name] = {'w': quantize_per_channel(jp[name]['w'])}
+    tp = load_jax_params(TA.MLA(tcfg), jax.tree_util.tree_map(
+        np.asarray, jp))
+    return jcfg, tcfg, jp, tp
+
+
+def test_mla_without_cache_matches_reference():
+    jcfg, tcfg, jp, tp = _mla_layer()
+    x = _np((2, 10, jcfg.d_model), 30)
+    want, _ = JA.mla_attention(jp, jcfg, jnp.asarray(x))
+    got, cache = TA.mla_attention(tp, tcfg, _t(x))
+    assert cache is None
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+@pytest.mark.parametrize('quantize', [(), ('w_uk', 'w_uv')])
+def test_mla_prefill_and_decode_match_reference(quantize):
+    """A prefill into the compressed cache (the reference takes the
+    absorbed path there too, its ``cache_pos`` being 0), then decode
+    steps; with serve-time quantized ``w_uk``/``w_uv`` the absorbed path
+    dequantizes them (``_raw``)."""
+    jcfg, tcfg, jp, tp = _mla_layer(quantize)
+    S, steps, B = 9, 3, 2
+    jc = JA.init_mla_cache(jcfg, B, S + steps, jnp.float32)
+    tc = TA.init_mla_cache(tcfg, B, S + steps, torch.float32)
+    x = _np((B, S, jcfg.d_model), 31)
+    want, jc = JA.mla_attention(jp, jcfg, jnp.asarray(x), cache=jc,
+                                cache_pos=jnp.int32(0))
+    got, tc = TA.mla_attention(tp, tcfg, _t(x), cache=tc, cache_pos=0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    for i in range(steps):
+        x1 = _np((B, 1, jcfg.d_model), 32 + i)
+        want, jc = JA.mla_attention(jp, jcfg, jnp.asarray(x1), cache=jc,
+                                    cache_pos=jnp.int32(S + i))
+        got, tc = TA.mla_attention(tp, tcfg, _t(x1), cache=tc,
+                                   cache_pos=S + i)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    for name in ('c_kv', 'k_pe'):
+        np.testing.assert_allclose(tc[name].numpy(), np.asarray(jc[name]),
+                                   atol=1e-5)
+
+
+def test_mla_absorbed_path_equals_the_decompressed_one():
+    """The two paths compute one function: a prefill through the cache
+    equals the plain forward on the same input."""
+    _, tcfg, _, tp = _mla_layer()
+    x = _t(_np((2, 11, tcfg.d_model), 35))
+    plain, _ = TA.mla_attention(tp, tcfg, x)
+    cache = TA.init_mla_cache(tcfg, 2, 16, torch.float32)
+    absorbed, _ = TA.mla_attention(tp, tcfg, x, cache=cache, cache_pos=0)
+    np.testing.assert_allclose(absorbed.numpy(), plain.numpy(), atol=1e-5)

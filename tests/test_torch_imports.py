@@ -1,5 +1,5 @@
 """Import hygiene of the port: ``repro_torch``, ``chip_smoke.py``, the
-port's profiling script and its serving example never import ``jax`` or
+port's profiling scripts and its serving example never import ``jax`` or
 anything of the JAX package ``repro``, and
 ``chip_smoke.py`` refuses to run where it has no GPU or no repository."""
 import ast
@@ -15,7 +15,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / 'src' / 'repro_torch'
 SOURCES = sorted(str(p.relative_to(ROOT)) for p in PORT.rglob('*.py')) + [
     'chip_smoke.py', 'scripts/torch_profile_step.py',
-    'examples/serve_diffusion_torch.py']
+    'scripts/torch_lm_gap.py', 'examples/serve_diffusion_torch.py']
 
 # the serving features' modules (threefry generator, photonic model,
 # DeepCache): the hygiene tests below must reach each of them

@@ -61,6 +61,28 @@ def test_w8a8_kernel_on_card_is_exact(cuda, M, K, N):
     assert torch.equal(out, ref)
 
 
+# every (K, N) of the Granite-MoE, DeepSeek-V2-Lite and Mamba2 w8a8
+# forwards: N = 64 (w_kpe) and 80 (in_dt) below one 128-wide tile, K =
+# 2816 (the shared experts' down projection) and 5120 (out_proj)
+LM_FAMILY_KN = [(1024, 1024), (2048, 3072), (2048, 512), (2048, 64),
+                (2048, 2048), (2048, 2816), (2816, 2048), (2560, 5120),
+                (2560, 5376), (2560, 80), (5120, 2560)]
+
+
+@pytest.mark.parametrize('M', [4000, 4])
+@pytest.mark.parametrize('K,N', LM_FAMILY_KN)
+def test_w8a8_kernel_at_lm_family_shapes(cuda, M, K, N):
+    """Bit-exact at the prefill's M (4 x 1000) and a decode step's (4,
+    the small-M split-K path)."""
+    gen = torch.Generator(device=cuda).manual_seed(K + N)
+    x = torch.randn((M, K), device=cuda, generator=gen)
+    w = torch.randn((K, N), device=cuda, generator=gen)
+    out = tops.w8a8_matmul(x, w)
+    xq, wq = tq.quantize(x, axis=(1,)), tq.quantize_per_channel(w)
+    ref = tmm.w8a8_matmul_plain(xq.q, xq.scale, wq.q, wq.scale.reshape(1, N))
+    assert torch.equal(out, ref)
+
+
 def test_w8a8_prequantized_qtensor_on_card(cuda):
     """A pre-quantized Linear weight reaches the kernel through its
     K-major copy, built once, and matches the dynamic path exactly."""
@@ -232,3 +254,17 @@ def test_flash_attention_bshd_kernel_checks_its_inputs(cuda):
         tfa.flash_attention_bshd_kernel(q, kp, kp)
     with pytest.raises(ValueError, match='dtypes'):
         tfa.flash_attention_bshd_kernel(q.bfloat16(), k, k)
+
+
+def test_flash_attention_bshd_at_the_granite_prefill(cuda):
+    """Granite-MoE's prefill layout: q (4, 1000, 16, 64) against the rows
+    just written into a (4, 1001, 16, 64) float32 cache (8 KV heads
+    times ``kv_repeat`` 2), within the float32 tolerance."""
+    gen = torch.Generator(device=cuda).manual_seed(64)
+    q = torch.randn((4, 1000, 16, 64), device=cuda, generator=gen)
+    ck, cv = (torch.randn((4, 1001, 16, 64), device=cuda, generator=gen)
+              for _ in range(2))
+    k, v = ck[:, :1000], cv[:, :1000]
+    out = tops.flash_attention_bshd(q, k, v, causal=True)
+    ref = tfa.flash_attention_bshd_plain(q, k, v, causal=True)
+    _flash_check(out, ref, q.dtype)

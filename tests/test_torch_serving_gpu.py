@@ -5,7 +5,9 @@ a float32 product summed in another order), and a tiny engine serving a
 noisy, a DeepCache and an early-exit request (the same tallies; images
 within the W8A8 tolerance, 1e-3); decode overlap on a second stream
 against the CPU's in-order decode (1e-3) and the card's (1e-6), through
-the engine and ``serve_diffusion``.
+the engine and ``serve_diffusion``; the smoke LMs of the MoE, MLA, SSM
+and hybrid families, a prefill and decode steps on the card against the
+CPU (logits 1e-4: float32 sums in another order).
 
 Imports neither ``jax`` nor the JAX package, so it runs on the GPU
 machine: ``python -m pytest -m gpu tests/test_torch_serving_gpu.py``.
@@ -175,3 +177,29 @@ def test_serve_diffusion_with_overlap_on_card(cuda):
     for rid, a in on.items():
         assert a.energy_j == off[rid].energy_j
         np.testing.assert_allclose(a.image, off[rid].image, atol=1e-6)
+
+
+@pytest.mark.parametrize('arch', ['granite-moe-1b-a400m',
+                                  'deepseek-v2-lite-16b', 'mamba2-2.7b',
+                                  'jamba-1.5-large-398b'])
+def test_lm_families_on_card_match_cpu(cuda, arch):
+    import copy
+
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.launch.steps import init_params
+    from repro_torch.models import transformer as T
+    cfg = smoke_config(arch)
+    lms = {'cpu': init_params(torch.Generator().manual_seed(0), cfg, 'cpu')}
+    lms['cuda'] = copy.deepcopy(lms['cpu']).to(cuda)
+    tok = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 21)))
+    caches = {d: T.init_lm_cache(cfg, 2, 24, torch.float32, d) for d in lms}
+    with torch.no_grad():
+        out = {d: T.lm_prefill(lms[d], cfg, tok.to(d), caches[d],
+                               dtype=torch.float32)[0] for d in lms}
+        for step in range(3):
+            assert (out['cuda'].cpu() - out['cpu']).abs().max() <= 1e-4
+            nxt = out['cpu'].argmax(-1).to(torch.int32)
+            out = {d: T.lm_decode(lms[d], cfg, nxt.to(d), caches[d],
+                                  21 + step, dtype=torch.float32)[0]
+                   for d in lms}
