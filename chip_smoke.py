@@ -31,9 +31,12 @@ Phases, each printing its own lines:
    CUDA-core kernel), and its grouped entry ``flash_attention_bshd`` at
    each prefill's own layout (InternLM2: q (4, 1000, 16, 128) against a
    slice of a (4, 1001, 8, 128) cache; Granite-MoE: (4, 1000, 16, 64)
-   against (4, 1001, 16, 64)), and the W8A8 kernel, bit-exact, at every
-   (K, N) of the w8a8 forward of InternLM2, Granite-MoE,
-   DeepSeek-V2-Lite and Mamba2 at M = 4000 and M = 4 (``torch._int_mm``
+   against (4, 1001, 16, 64); Whisper-base's decoder: (4, 1000, 8, 64)
+   against (4, 1032, 8, 64); Qwen2-VL-7B, a GQA group of 7: (4, 1000,
+   28, 128) against (4, 1032, 4, 128)), and the W8A8 kernel, bit-exact,
+   at every (K, N) of the w8a8 forward of InternLM2, Granite-MoE,
+   DeepSeek-V2-Lite, Mamba2 and Qwen2-VL at M = 4000 and M = 4
+   (``torch._int_mm``
    refuses M <= 16, so at the decode step it is timed on M padded to 32
    rows);
    3b. prng: the threefry generator (``core/prng``) on the card against
@@ -67,9 +70,12 @@ Phases, each printing its own lines:
    walls of a w8a8, a noisy, a refresh and a skip step over 4 slots, and
    the share of the noisy step its noise draws take;
 6. LM small width: the smoke InternLM2 (head dim 16, GQA rep 2),
-   Granite-MoE, DeepSeek-V2-Lite (MLA + MoE), Mamba2 and Jamba (one
-   hybrid unit) from one seed on the card and on the CPU, a prefill and 8
-   decode steps at fp32 and at w8a8, logits compared step by step;
+   Granite-MoE, DeepSeek-V2-Lite (MLA + MoE), Mamba2, Jamba (one
+   hybrid unit), Whisper-base (encoder-decoder) and Qwen2-VL (M-RoPE)
+   from one seed on the card and on the CPU, a prefill and 8 decode
+   steps at fp32 and at w8a8, logits compared step by step; then one
+   ``lm_apply`` of the smoke Qwen2-VL with ``inputs_embeds`` and (B, S,
+   3) positions whose three streams differ;
 7. LM full width: InternLM2-1.8B with random weights from seed 0 on the
    card.  First the check: the prefill's last-token logits (flash
    kernel) against ``lm_apply``'s at the last position (``gqa_core``) on
@@ -106,7 +112,15 @@ Phases, each printing its own lines:
    launches held to ``FAMILY_PLAN`` (Granite 24 flash per prefill and 48
    W8A8 per w8a8 forward; DeepSeek 0 and 189; Mamba2 0 and 256) and the
    W8A8 shapes of a prefill to phase 3's list; tokens, prefill s, decode
-   tok/s and peak memory printed.
+   tok/s and peak memory printed;
+10. encoder-decoder and VLM: every earlier model freed, Whisper-base and
+   Qwen2-VL-7B in turn at full width and depth, with phase 9's check
+   (Whisper: the prefill against ``decode_train``, at fp32 only, since
+   its steps ignore ``quant`` as the reference's do) and ``serve_lm``
+   runs at fp32 and w8a8 (1000 stub frames for Whisper's encoder):
+   launches held to ``ENCDEC_VLM_PLAN`` (Whisper 6 flash per prefill and
+   0 W8A8, its w8a8 tokens equal to its fp32 tokens; Qwen2-VL 28 flash
+   and 140 W8A8 per w8a8 forward).
 
 Every phase prints its seconds (``[time]``).
 
@@ -118,8 +132,8 @@ phase 3, weighted by launches per evaluation); for ``flash_attention``
 they are one prefill's worth (24 launches at the path shape), with
 ``passes`` (TF32 products per float32 product) and ``bound_f32_ms``
 (the float32 CUDA-core bound) beside them.
-``launches`` is each kernel's count over the runs of phases 5, 5b, 7, 8
-and 9, each read from counters set to 0 just before its run.
+``launches`` is each kernel's count over the runs of phases 5, 5b, 7, 8,
+9 and 10, each read from counters set to 0 just before its run.
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, and the run then exits non-zero with no result; so does a run
 without CUDA or without the repository beside this file.
@@ -214,11 +228,17 @@ SMALL_LM_STEPS = 8
 FAMILY_PLAN = {'granite-moe-1b-a400m': (24, 48),
                'deepseek-v2-lite-16b': (0, 189),
                'mamba2-2.7b': (0, 256)}
+# phase 10, the same for the encoder-decoder and the VLM: Whisper's 6
+# decoder self-attention layers (its encoder and cross-attention run
+# gqa_core, as the reference's) and no W8A8 (its steps ignore quant, as
+# the reference's); Qwen2-VL: wq, wo, gate, up, down x 28
+ENCDEC_VLM_PLAN = {'whisper-base': (6, 0), 'qwen2-vl-7b': (28, 140)}
 # small width, card against CPU (phase 6): the dense LM and the smoke
-# configs of every decoder-only family; Jamba runs only here (398.6 B
+# configs of every other family; Jamba runs only here (398.6 B
 # parameters, 1485 GiB in float32, fit no card)
 SMALL_LM_ARCHS = (LM_ARCH, 'granite-moe-1b-a400m', 'deepseek-v2-lite-16b',
-                  'mamba2-2.7b', 'jamba-1.5-large-398b')
+                  'mamba2-2.7b', 'jamba-1.5-large-398b', 'whisper-base',
+                  'qwen2-vl-7b')
 # (BH, S, T, d, causal, q dtype, k/v dtype): the InternLM2-1.8B prefill
 # (4 x 16 heads, 1000 tokens, not a multiple of the 64-row tile) in the
 # path's float32, all-bf16, and float32 q over a bf16 cache; the
@@ -549,9 +569,10 @@ def check_flash(what: str, out, ref, q_dtype) -> float:
 def phase_flash(torch, n_layers: int, lm_cfgs):
     """Phase 3, flash attention: kernel vs plain at ``FLASH_SHAPES``, with
     times; then the grouped entry at each LM's prefill layout
-    (``lm_cfgs``: InternLM2-1.8B, Granite-MoE).  Returns the InternLM2
-    per-prefill summary (``n_layers`` launches at the path shape, the
-    first entry)."""
+    (``lm_cfgs``: (config, cache rows) of InternLM2-1.8B, Granite-MoE,
+    Whisper-base, Qwen2-VL-7B).  Returns the InternLM2 per-prefill
+    summary (``n_layers`` launches at the path shape, the first
+    entry)."""
     import ctypes
 
     import torch.nn.functional as F
@@ -608,23 +629,24 @@ def phase_flash(torch, n_layers: int, lm_cfgs):
           f'{FLASH_SHAPES[0][:4]}): ' + json.dumps(summary))
 
     # the grouped entry at each prefill's layout: q (B, S, H, d) against
-    # the rows just written into a (B, S + 1, G, d) float32 cache, as they
+    # the rows just written into a (B, rows, G, d) float32 cache, as they
     # lie
-    for lm_cfg in lm_cfgs:
-        err = flash_bshd_row(torch, fak, F, gen, lm_cfg)
+    for lm_cfg, rows in lm_cfgs:
+        err = flash_bshd_row(torch, fak, F, gen, lm_cfg, rows)
         summary['max_abs_err'] = max(summary['max_abs_err'], err)
     return summary
 
 
-def flash_bshd_row(torch, fak, F, gen, lm_cfg) -> float:
-    """``flash_attention_bshd`` at ``lm_cfg``'s prefill layout, kernel vs
-    plain, with times and the per-prefill total; returns the error."""
+def flash_bshd_row(torch, fak, F, gen, lm_cfg, rows: int) -> float:
+    """``flash_attention_bshd`` at ``lm_cfg``'s prefill layout against the
+    first S of a cache of ``rows`` rows, kernel vs plain, with times and
+    the per-prefill total; returns the error."""
     B, S = LM_BATCH, LM_PROMPT
     H, G, d = (lm_cfg.n_heads, lm_cfg.n_kv_heads * lm_cfg.kv_repeat,
                lm_cfg.hd)
     per_prefill = attention_layers(lm_cfg)
     q = torch.randn((B, S, H, d), device='cuda', generator=gen)
-    ck, cv = (torch.randn((B, S + 1, G, d), device='cuda', generator=gen)
+    ck, cv = (torch.randn((B, rows, G, d), device='cuda', generator=gen)
               for _ in range(2))
     k, v = ck[:, :S], cv[:, :S]
     out = fak.flash_attention_bshd_kernel(q, k, v, causal=True)
@@ -649,7 +671,7 @@ def flash_bshd_row(torch, fak, F, gen, lm_cfg) -> float:
            **flash_bound(fak, q, k, v, B * H, S, S, True)}
     print('[kernels] shape ' + json.dumps(
         {'kernel': 'flash_attention_bshd', 'lm': lm_cfg.name,
-         'shape': [B, S, H, G, d], 'cache_rows': S + 1, 'causal': True,
+         'shape': [B, S, H, G, d], 'cache_rows': rows, 'causal': True,
          'dtypes': ['float32', 'float32'], 'max_abs_err': err,
          'kernel_ms': row['ms'], 'device_ms': row['device_ms'],
          'plain_ms': row['plain_ms'], 'library_ms': row['library_ms'],
@@ -666,8 +688,12 @@ def lm_w8a8_shapes(cfg) -> collections.Counter:
     """(K, N) -> W8A8 launches per forward of ``cfg`` under ``--w8a8``:
     attention wq, wo; MLA wq, w_dkv, w_kpe, wo (``w_uk``/``w_uv`` stay
     float); Mamba in_z, in_xbc, in_dt, out_proj; a dense MLP's or the
-    shared experts' up, gate, down (routers and experts stay float)."""
+    shared experts' up, gate, down (routers and experts stay float).
+    None for the encoder-decoder, whose steps ignore ``quant`` as the
+    reference's do."""
     from repro_torch.models.transformer import _block_kinds, n_scan_steps
+    if cfg.family == 'encdec':
+        return collections.Counter()
     d = cfg.d_model
     per_unit = collections.Counter()
     for mixer, ffn in _block_kinds(cfg):
@@ -1174,7 +1200,9 @@ def phase_full_features(torch, numpy, ops, pipe, context, card, normal_ms):
 
 
 def attention_layers(cfg) -> int:
-    """GQA sub-layers of the LM: its flash launches per prefill."""
+    """GQA sub-layers of the LM, or decoder layers of the encoder-decoder
+    (one dense ``A``/``D`` unit per layer in ``_block_kinds``): its flash
+    launches per prefill."""
     from repro_torch.models.transformer import _block_kinds, n_scan_steps
     return n_scan_steps(cfg) * sum(mixer == 'A'
                                    for mixer, _ in _block_kinds(cfg))
@@ -1182,36 +1210,77 @@ def attention_layers(cfg) -> int:
 
 def phase_lm_small(torch, numpy, ops):
     """Phase 6: the smoke configs of ``SMALL_LM_ARCHS`` (InternLM2, and
-    the MoE, MLA, SSM and hybrid families) on the card and on the CPU
-    from one seed, a prefill and ``SMALL_LM_STEPS`` decode steps, both fed
-    the CPU's greedy tokens; logits compared at every step, and the flash
-    launches per prefill counted."""
+    the MoE, MLA, SSM, hybrid, encoder-decoder and VLM families) on the
+    card and on the CPU from one seed, a prefill and ``SMALL_LM_STEPS``
+    decode steps, both fed the CPU's greedy tokens; logits compared at
+    every step, and the flash launches per prefill counted; then the
+    VLM's ``lm_apply`` with ``inputs_embeds`` and M-RoPE streams."""
     for arch in SMALL_LM_ARCHS:
         lm_small(torch, numpy, ops, arch)
+    vlm_small(torch, numpy)
+
+
+def lm_calls(torch, cfg, frames=None):
+    """``(init_state, prefill, decode, forward)`` of ``cfg`` in float32:
+    ``init_state(B, rows, device)``, ``prefill(model, tokens, state,
+    quant) -> (last-token logits, state)``, ``decode(model, token, state,
+    pos, quant) -> (logits, state)`` and the no-cache ``forward(model,
+    tokens, quant) -> logits``.  For the encoder-decoder, ``frames`` feed
+    the encoder, the state is (cache, memory), the forward is
+    ``decode_train``, and ``quant`` is ignored, as the reference's steps
+    ignore it."""
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import transformer as T
+    f32 = torch.float32
+    if cfg.family != 'encdec':
+        return (lambda B, rows, dev: T.init_lm_cache(cfg, B, rows, f32, dev),
+                lambda m, tokens, cache, quant: T.lm_prefill(
+                    m, cfg, tokens, cache, dtype=f32, quant=quant),
+                lambda m, token, cache, pos, quant: T.lm_decode(
+                    m, cfg, token, cache, pos, dtype=f32, quant=quant),
+                lambda m, tokens, quant: T.lm_apply(m, cfg, tokens,
+                                                    quant=quant))
+
+    def prefill(m, tokens, state, quant):
+        logits, cache, memory = ED.encdec_prefill(
+            m, cfg, frames.to(tokens.device), tokens, state[0], dtype=f32)
+        return logits, (cache, memory)
+
+    def decode(m, token, state, pos, quant):
+        logits, cache = ED.encdec_decode(m, cfg, token, state[0], pos,
+                                         state[1], dtype=f32)
+        return logits, (cache, state[1])
+
+    return (lambda B, rows, dev: (ED.init_dec_cache(cfg, B, rows, f32, dev),
+                                  None),
+            prefill, decode,
+            lambda m, tokens, quant: ED.decode_train(
+                m, cfg, frames.to(tokens.device), tokens))
 
 
 def lm_small(torch, numpy, ops, arch):
     import copy
     from repro_torch.configs.registry import smoke_config
     from repro_torch.launch.steps import init_params
-    from repro_torch.models import transformer as T
     cfg = smoke_config(arch)
     lms = {'cpu': init_params(torch.Generator().manual_seed(0), cfg, 'cpu')}
     lms['cuda'] = copy.deepcopy(lms['cpu']).to('cuda')
     B, S = 2, 40              # S is not a multiple of the 64-row tile
     n_attn = attention_layers(cfg)
-    tokens = torch.from_numpy(numpy.random.default_rng(3).integers(
-        0, cfg.vocab, (B, S)))
+    rng = numpy.random.default_rng(3)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)))
+    frames = torch.from_numpy(rng.normal(size=(B, S, cfg.d_model))).float()
+    init_state, prefill, decode, _ = lm_calls(torch, cfg, frames)
     for quant, tol in ((False, LM_SMALL_FP32_ATOL),
                        (True, LM_SMALL_W8A8_ATOL)):
-        caches = {dev: T.init_lm_cache(cfg, B, S + SMALL_LM_STEPS,
-                                       torch.float32, dev) for dev in lms}
+        states = {dev: init_state(B, S + SMALL_LM_STEPS, dev) for dev in lms}
         errs, sure = [], 0
         flash0 = ops.launch_counts()['flash_attention']
         with torch.no_grad():
-            logits = {dev: T.lm_prefill(lms[dev], cfg, tokens.to(dev),
-                                        caches[dev], dtype=torch.float32,
-                                        quant=quant)[0] for dev in lms}
+            logits = {}
+            for dev in lms:
+                logits[dev], states[dev] = prefill(lms[dev], tokens.to(dev),
+                                                   states[dev], quant)
             flash = ops.launch_counts()['flash_attention'] - flash0
             check(flash == n_attn, f'small {arch} prefill: flash launches '
                   f'{flash} != {n_attn}')
@@ -1228,10 +1297,9 @@ def lm_small(torch, numpy, ops, arch):
                 if step == SMALL_LM_STEPS:
                     break
                 nxt = b.argmax(-1).to(torch.int32)
-                logits = {dev: T.lm_decode(lms[dev], cfg, nxt.to(dev),
-                                           caches[dev], S + step,
-                                           dtype=torch.float32,
-                                           quant=quant)[0] for dev in lms}
+                for dev in lms:
+                    logits[dev], states[dev] = decode(
+                        lms[dev], nxt.to(dev), states[dev], S + step, quant)
         err = max(errs)
         print(f'[lm-small] {cfg.name} {"w8a8" if quant else "fp32"}: prefill '
               f'{B}x{S} + {SMALL_LM_STEPS} decode steps, card vs CPU max abs '
@@ -1239,6 +1307,41 @@ def lm_small(torch, numpy, ops, arch):
               f'positions with a top-2 margin above it; {flash} flash '
               'launches per prefill')
         check(err <= tol, f'small {arch}: card vs CPU {err} > {tol}')
+
+
+def vlm_small(torch, numpy):
+    """The smoke Qwen2-VL's ``lm_apply`` on the card and the CPU with
+    ``inputs_embeds`` (the vision stub's output) and (B, S, 3) positions
+    whose t, h and w streams differ, at fp32 and w8a8."""
+    import copy
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.launch.steps import init_params
+    from repro_torch.models import transformer as T
+    cfg = smoke_config('qwen2-vl-7b')
+    lms = {'cpu': init_params(torch.Generator().manual_seed(0), cfg, 'cpu')}
+    lms['cuda'] = copy.deepcopy(lms['cpu']).to('cuda')
+    B, S = 2, 40
+    rng = numpy.random.default_rng(4)
+    embeds = torch.from_numpy(rng.normal(size=(B, S, cfg.d_model))).float()
+    t = numpy.arange(S)[None, :] + rng.integers(0, 30, (B, 1))
+    pos3 = torch.from_numpy(numpy.stack(
+        [t, rng.integers(0, 20, (B, S)), rng.integers(0, 20, (B, S))], -1))
+    check(bool((pos3[..., 0] != pos3[..., 1]).any()
+               and (pos3[..., 1] != pos3[..., 2]).any()),
+          'the three M-RoPE streams must differ')
+    for quant, tol in ((False, LM_SMALL_FP32_ATOL),
+                       (True, LM_SMALL_W8A8_ATOL)):
+        with torch.no_grad():
+            out = {dev: T.lm_apply(lms[dev], cfg, None, pos=pos3.to(dev),
+                                   inputs_embeds=embeds.to(dev),
+                                   quant=quant).cpu() for dev in lms}
+        err = (out['cuda'] - out['cpu']).abs().max().item()
+        print(f'[lm-small] {cfg.name} {"w8a8" if quant else "fp32"} '
+              f'lm_apply with inputs_embeds {B}x{S} and 3 distinct M-RoPE '
+              f'streams: card vs CPU max abs logit err {err:.3e} (tol '
+              f'{tol})')
+        check(out['cuda'].shape == (B, S, cfg.vocab) and err <= tol,
+              f'small {cfg.name} inputs_embeds: card vs CPU {err} > {tol}')
 
 
 def record_flash_entries(fak, fn):
@@ -1280,16 +1383,17 @@ def phase_lm_full(torch, numpy, ops, card):
                    w8a8_rtol=LM_FULL_W8A8_RTOL)
 
 
-def phase_lm_families(torch, numpy, ops, card):
-    """Phase 9: the MoE, MLA and SSM families at full width and depth
-    (Granite-MoE, DeepSeek-V2-Lite, Mamba2), each alone on the card
-    (DeepSeek's 16.21 B float32 parameters, 60.4 GiB, fit an 80 GB card
-    once every earlier model is freed): phase 7's check and ``serve_lm``
-    runs, with the launches held to ``FAMILY_PLAN``.  Returns the launch
-    counts of the serving runs."""
+def phase_lm_families(torch, numpy, ops, card, plan, tag):
+    """Phases 9 and 10: the families of ``plan`` (9: ``FAMILY_PLAN``, the
+    MoE, MLA and SSM families; 10: ``ENCDEC_VLM_PLAN``, the
+    encoder-decoder and the VLM) at full width and depth, each alone on
+    the card (DeepSeek's 16.21 B float32 parameters, 60.4 GiB, fit an 80
+    GB card once every earlier model is freed): phase 7's check and
+    ``serve_lm`` runs, with the launches held to the plan.  Returns the
+    launch counts of the serving runs."""
     from repro_torch.configs.registry import get
     launches = collections.Counter()
-    for arch, (flash, mm) in FAMILY_PLAN.items():
+    for arch, (flash, mm) in plan.items():
         cfg = get(arch)
         planned = (attention_layers(cfg), sum(lm_w8a8_shapes(cfg).values()))
         check(planned == (flash, mm),
@@ -1298,11 +1402,11 @@ def phase_lm_families(torch, numpy, ops, card):
         gc.collect()          # phase 8's pipeline sits in reference cycles
         torch.cuda.empty_cache()
         held = torch.cuda.memory_allocated() / 2**30
-        print(f'[lm-family] {arch}: {held:.2f} GiB allocated on the card '
+        print(f'[{tag}] {arch}: {held:.2f} GiB allocated on the card '
               'before it is built')
         t0 = time.perf_counter()
-        launches.update(lm_full(torch, numpy, ops, card, cfg, 'lm-family'))
-        print(f'[lm-family] {arch}: {time.perf_counter() - t0:.1f} s')
+        launches.update(lm_full(torch, numpy, ops, card, cfg, tag))
+        print(f'[{tag}] {arch}: {time.perf_counter() - t0:.1f} s')
     torch.cuda.empty_cache()
     return launches
 
@@ -1311,21 +1415,23 @@ def lm_full(torch, numpy, ops, card, cfg, tag, w8a8_rtol=None):
     """``cfg`` at full width with random weights from seed 0 drawn on the
     card.  First the check, at fp32 and w8a8: the prefill's last-token
     logits (the flash kernel on the cache for GQA, the absorbed path for
-    MLA, the chunked SSD for Mamba) against ``lm_apply``'s at the last
-    position (fp32 within ``LM_FULL_FP32_ATOL``; w8a8 within the
+    MLA, the chunked SSD for Mamba) against the no-cache forward's at the
+    last position (``lm_apply``; ``decode_train`` for the encoder-decoder,
+    checked at fp32 only, since its steps ignore ``quant``) (fp32 within
+    ``LM_FULL_FP32_ATOL``; w8a8 within the
     quantization noise of the run, and ``w8a8_rtol`` of the largest logit
     where given), with the launches of one prefill and one decode step held
     to the plan (flash: one per GQA layer per prefill, all through
     ``flash_attention_bshd`` on the cache, none per decode step; W8A8:
     ``lm_w8a8_shapes`` per w8a8 forward, the shapes the prefill hands the
     kernel equal to it).  Then ``serve_lm`` (batch 4, a 1000-token
-    prompt, 32 new tokens, float32) at fp32 and at w8a8, with the
-    launches checked, tokens in the vocabulary, and the prefill seconds,
-    decode tokens/s and peak memory printed.  Returns the launch counts
-    of the serving runs."""
+    prompt, 32 new tokens, float32; the encoder-decoder also encodes 1000
+    stub frames) at fp32 and at w8a8, with the launches checked, tokens
+    in the vocabulary (the encoder-decoder's w8a8 tokens equal to its
+    fp32 ones), and the prefill seconds, decode tokens/s and peak memory
+    printed.  Returns the launch counts of the serving runs."""
     from repro_torch.launch.serve import serve_lm
     from repro_torch.launch.steps import init_params
-    from repro_torch.models import transformer as T
     from repro_torch.kernels import flash_attention as fak
     t0 = time.perf_counter()
     lm = init_params(torch.Generator(device='cuda').manual_seed(0), cfg,
@@ -1335,32 +1441,35 @@ def lm_full(torch, numpy, ops, card, cfg, tag, w8a8_rtol=None):
     print(f'[{tag}] {cfg.name}: {n_params:,} parameters '
           f'({4 * n_params / 2**30:.1f} GiB) drawn on the card from seed 0 '
           f'in {time.perf_counter() - t0:.1f} s; {cfg.n_layers} layers')
-    tokens = torch.from_numpy(numpy.random.default_rng(0).integers(
+    rng = numpy.random.default_rng(0)     # serve_lm's draws, in its order
+    tokens = torch.from_numpy(rng.integers(
         0, cfg.vocab, (LM_BATCH, LM_PROMPT))).to('cuda', torch.int32)
+    frames = torch.from_numpy(rng.normal(
+        size=(LM_BATCH, LM_PROMPT, cfg.d_model))).to('cuda', torch.float32)
+    encdec = cfg.family == 'encdec'
+    init_state, prefill, decode, forward = lm_calls(torch, cfg, frames)
+    forward_name = 'decode_train' if encdec else 'lm_apply'
     n_attn = attention_layers(cfg)
     mm_shapes = lm_w8a8_shapes(cfg)
     per_forward_mm = sum(mm_shapes.values())
-    for quant in (False, True):
+    for quant in (False,) if encdec else (False, True):
         qtag = 'w8a8' if quant else 'fp32'
-        cache = T.init_lm_cache(cfg, LM_BATCH, LM_PROMPT + 1, torch.float32,
-                                'cuda')
+        state = init_state(LM_BATCH, LM_PROMPT + 1, 'cuda')
         with torch.no_grad():
             ops.reset_launches()
             out = {}
             shapes = record_shapes(ops, lambda: out.update(
-                record_flash_entries(fak, lambda: T.lm_prefill(
-                    lm, cfg, tokens, cache, dtype=torch.float32,
-                    quant=quant))))
-            last, cache = out.pop('result')
+                record_flash_entries(fak, lambda: prefill(
+                    lm, tokens, state, quant))))
+            last, state = out.pop('result')
             entries = out
             pre = ops.launch_counts()
             ops.reset_launches()
             nxt = last.argmax(-1).to(torch.int32)
-            T.lm_decode(lm, cfg, nxt, cache, LM_PROMPT, dtype=torch.float32,
-                        quant=quant)
+            decode(lm, nxt, state, LM_PROMPT, quant)
             dec = ops.launch_counts()
-            del cache
-            full = T.lm_apply(lm, cfg, tokens, quant=quant)[:, -1]
+            del state
+            full = forward(lm, tokens, quant)[:, -1].clone()
         diff = last[:, 0] - full
         err = diff.abs().max().item()
         rel = (diff.norm() / full.norm()).item()
@@ -1373,15 +1482,15 @@ def lm_full(torch, numpy, ops, card, cfg, tag, w8a8_rtol=None):
                 tol = min(tol, w8a8_rtol * scale)
         else:
             tol, rel_tol = LM_FULL_FP32_ATOL, math.inf
-            full_fp32 = full.clone()      # not a view of all the logits
+            full_fp32 = full
         print(f'[{tag}] {cfg.name} {qtag} check: prefill last-token logits '
-              f'vs lm_apply: max abs err {err:.3e} (tol {tol:.3e}; max '
-              f'|logit| {scale:.3f}); relative L2 {rel:.3e} (tol '
+              f'vs {forward_name}: max abs err {err:.3e} (tol {tol:.3e}; '
+              f'max |logit| {scale:.3f}); relative L2 {rel:.3e} (tol '
               f'{rel_tol:.3e}); launches per prefill {pre} (flash entries '
               f'{entries}), per decode step {dec}')
-        del full
         check(err <= tol and rel <= rel_tol, f'{cfg.name} {qtag}: prefill '
-              f'vs lm_apply {err} > {tol} or relative L2 {rel} > {rel_tol}')
+              f'vs {forward_name} {err} > {tol} or relative L2 {rel} > '
+              f'{rel_tol}')
         check(pre['flash_attention'] == n_attn
               and dec['flash_attention'] == 0,
               f'{cfg.name} {qtag}: flash launches {pre}, {dec}: want '
@@ -1422,6 +1531,11 @@ def lm_full(torch, numpy, ops, card, cfg, tag, w8a8_rtol=None):
               and got['w8a8_matmul'] == want_mm,
               f'{cfg.name} {qtag}: launches {got}, want flash {n_attn} and '
               f'w8a8 {want_mm}')
+        if not quant:
+            seqs_fp32 = seqs
+        elif encdec:
+            check(torch.equal(seqs, seqs_fp32), f'{cfg.name}: w8a8 tokens '
+                  'differ from fp32 ones, though its steps ignore quant')
         print(f'[{tag}] {card}: {cfg.name} {qtag} serve_lm batch '
               f'{LM_BATCH}, prompt {LM_PROMPT}, {LM_TOKENS} new tokens: '
               f'prefill {timing["prefill_s"]:.3f} s, decode {LM_TOKENS - 1} '
@@ -1663,9 +1777,15 @@ def main() -> int:
     summary, per_eval = phase_kernels(torch, ops, pipe, context)
     check(per_eval['fused_gn_swish'] == 45 and per_eval['w8a8_matmul'] == 128,
           f'SD v1.4 launches per evaluation {per_eval}, expected 45 / 128')
+    # InternLM2 and Granite against one cache row past the prompt,
+    # Whisper and Qwen2-VL against serve_lm's prompt + new tokens
     summary['flash_attention'] = phase_flash(
-        torch, lm_cfg.n_layers, [lm_cfg, get('granite-moe-1b-a400m')])
-    phase_w8a8_lm(torch, [lm_cfg] + [get(a) for a in FAMILY_PLAN])
+        torch, lm_cfg.n_layers,
+        [(lm_cfg, LM_PROMPT + 1), (get('granite-moe-1b-a400m'),
+                                   LM_PROMPT + 1)]
+        + [(get(a), LM_PROMPT + LM_TOKENS) for a in ENCDEC_VLM_PLAN])
+    phase_w8a8_lm(torch, [lm_cfg] + [get(a) for a in FAMILY_PLAN]
+                  + [get('qwen2-vl-7b')])
     lap('3 (kernels)')
 
     normal_ms = phase_prng(torch)
@@ -1711,11 +1831,21 @@ def main() -> int:
 
     # phase 9: the MoE, MLA and SSM families at full width, every earlier
     # model freed
-    family_launches = phase_lm_families(torch, numpy, ops, card)
+    family_launches = phase_lm_families(torch, numpy, ops, card,
+                                        FAMILY_PLAN, 'lm-family')
     print(f'[lm-family] MoE / MLA / SSM path launches: '
           f'{dict(family_launches)}')
     launches.update(family_launches)
     lap('9 (LM families)')
+
+    # phase 10: the encoder-decoder and the VLM at full width and depth,
+    # every earlier model freed
+    encdec_launches = phase_lm_families(torch, numpy, ops, card,
+                                        ENCDEC_VLM_PLAN, 'encdec-vlm')
+    print(f'[encdec-vlm] encoder-decoder / VLM path launches: '
+          f'{dict(encdec_launches)}')
+    launches.update(encdec_launches)
+    lap('10 (encoder-decoder, VLM)')
 
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():

@@ -15,11 +15,14 @@ of ``w8a8+noise`` requests (a noisy full step each), then a DeepCache
 engine (cadence 3) of w8a8 requests, one refresh tick and two skip
 ticks.
 ``--lm``: builds each ``--arch`` in turn (default InternLM2-1.8B; the
-MoE, MLA and SSM families too: granite-moe-1b-a400m,
-deepseek-v2-lite-16b, mamba2-2.7b) at full width with random weights
-from seed 0, freeing the one before, and profiles, at fp32 and w8a8, one
-prefill of ``serve_lm``'s traffic (batch 4, a 1000-token prompt, float32
-activations and cache) and ``--ticks`` decode steps after it.  For each
+MoE, MLA, SSM, encoder-decoder and VLM families too:
+granite-moe-1b-a400m, deepseek-v2-lite-16b, mamba2-2.7b, whisper-base,
+qwen2-vl-7b) at full width with random weights from seed 0, freeing the
+one before, and profiles, at fp32 and w8a8, one prefill of
+``serve_lm``'s traffic (batch 4, a 1000-token prompt, float32
+activations and cache; for Whisper also 1000 stub frames, and fp32 only,
+since its steps ignore ``quant``) and ``--ticks`` decode steps after
+it.  For each
 it prints, from ``torch.profiler``, the host wall time per step
 (synchronised), the summed kernel time, the device idle share (1 -
 kernel time / wall), the time per kernel family, and the heaviest
@@ -98,9 +101,13 @@ def profile_lm(torch, card: str, arch: str, decode_steps: int) -> None:
     batch, prompt = 4, 1000
     lm = ST.init_params(torch.Generator(device='cuda').manual_seed(0), cfg,
                         'cuda')
-    tokens = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab, (batch, prompt))).to('cuda', torch.int32)
-    for quant in (False, True):
+    rng = np.random.default_rng(0)          # serve_lm's draws, in its order
+    batch_in = {'tokens': torch.from_numpy(rng.integers(
+        0, cfg.vocab, (batch, prompt))).to('cuda', torch.int32)}
+    if cfg.family == 'encdec':
+        batch_in['frames'] = torch.from_numpy(rng.normal(
+            size=(batch, prompt, cfg.d_model))).to('cuda', torch.float32)
+    for quant in (False,) if cfg.family == 'encdec' else (False, True):
         tag = 'w8a8' if quant else 'fp32'
         prefill = ST.build_prefill_step(cfg, torch.float32, quant)
         decode = ST.build_decode_step(cfg, torch.float32, quant)
@@ -109,7 +116,7 @@ def profile_lm(torch, card: str, arch: str, decode_steps: int) -> None:
         out = {'pos': prompt}
 
         def run_prefill():
-            out['tok'], out['state'] = prefill(lm, state, {'tokens': tokens})
+            out['tok'], out['state'] = prefill(lm, state, batch_in)
 
         def run_decode():
             out['tok'], out['state'] = decode(lm, out['state'], out['tok'],

@@ -58,23 +58,42 @@ def load_jax_lm_params(module: nn.Module, tree: Any) -> nn.Module:
     load as they are (only a 4-D leaf is a conv kernel).  Strict, as
     ``load_jax_params``; a leaf whose leading axis is not the module's
     unit count raises."""
+    return _load_stacked(module, tree, {'blocks': len(module.blocks)})
+
+
+def load_jax_encdec_params(module: nn.Module, tree: Any) -> nn.Module:
+    """Copy the reference encoder-decoder tree into an ``EncDec`` module:
+    ``enc_blocks`` (leading axis ``n_enc_layers``) and ``dec_blocks``
+    (``n_layers``) are unstacked into ``enc_blocks.{i}...`` and
+    ``dec_blocks.{i}...``.  Strict, as ``load_jax_lm_params``."""
+    return _load_stacked(module, tree,
+                         {'enc_blocks': len(module.enc_blocks),
+                          'dec_blocks': len(module.dec_blocks)})
+
+
+def _load_stacked(module: nn.Module, tree: Any,
+                  stacks: Dict[str, int]) -> nn.Module:
+    """Load ``tree`` whose leaves under each key of ``stacks`` carry a
+    leading axis of that key's unit count, unstacked into
+    ``{key}.{i}.{rest}``; a leading axis of another size raises."""
     flat: Dict[str, Any] = {}
     _flatten(tree, '', flat)
-    n = len(module.blocks)
     out: Dict[str, Any] = {}
     for key, leaf in flat.items():
-        if not key.startswith('blocks.'):
+        head, _, rest = key.partition('.')
+        if head not in stacks:
             out[key] = leaf
             continue
-        rest = key[len('blocks.'):]
+        n = stacks[head]
         parts = ((np.asarray(leaf.q), np.asarray(leaf.scale))
                  if _is_qtensor(leaf) else (np.asarray(leaf),))
         if any(a.shape[:1] != (n,) for a in parts):
             raise ValueError(f'{key}: leading axis {parts[0].shape[:1]} is '
-                             f'not the {n} scanned units (n_layers / '
-                             'sub-layers per unit) of the module')
+                             f'not the {n} scanned units of the module\'s '
+                             f'{head} (its layers; in a hybrid, layers / '
+                             'sub-layers per unit)')
         for i in range(n):
-            out[f'blocks.{i}.{rest}'] = (
+            out[f'{head}.{i}.{rest}'] = (
                 types.SimpleNamespace(q=parts[0][i], scale=parts[1][i])
                 if _is_qtensor(leaf) else parts[0][i])
     return _load_flat(module, out)

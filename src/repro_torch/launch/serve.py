@@ -4,6 +4,8 @@ batching diffusion generation (``serve_diffusion``).
 
     python -m repro_torch.launch.serve --arch internlm2-1.8b --preset full \\
         --batch 4 --prompt 1000 --tokens 32 [--w8a8]
+    python -m repro_torch.launch.serve --arch whisper-base --preset smoke \\
+        --device cpu
     python -m repro_torch.launch.serve --diffusion --model sd-v1.4 \\
         --requests 8 --rate 4 --slots 4 --steps 10 --precision w8a8 \\
         [--overlap-decode on] [--overload 5] [--trace t.json --prom t.prom]
@@ -52,7 +54,6 @@ from repro_torch.configs.diffusion import SD_V1_4, VAE_512
 from repro_torch.configs.registry import get, smoke_config
 from repro_torch.diffusion.pipeline import DiffusionPipeline, resolve_device
 from repro_torch.launch import steps as ST
-from repro_torch.models.transformer import LM
 from repro_torch.models.unet import UNetConfig
 from repro_torch.obs import (SnapshotReporter, Tracer, render_exposition,
                              write_chrome_trace, write_jsonl)
@@ -94,12 +95,16 @@ def setup_logging(level: str = 'info', stream=None) -> None:
 
 def serve_lm(cfg: ArchConfig, batch: int, prompt_len: int, new_tokens: int,
              quant: bool = False, dtype: torch.dtype = torch.float32,
-             device='cuda', params: Optional[LM] = None
+             device='cuda', params: Optional[torch.nn.Module] = None
              ) -> Tuple[torch.Tensor, Dict[str, float]]:
     """Greedy generation for ``batch`` prompts of ``prompt_len`` token ids
     drawn by ``numpy.random.default_rng(0)``, with activations and cache
-    in ``dtype``.  ``params``: the LM to serve (default: initialised from
-    seed 0 on ``device``).  Returns the ``(batch, new_tokens)`` int32
+    in ``dtype``.  The encoder-decoder family also encodes ``prompt_len``
+    stub frames (B, prompt_len, d_model), standard normals drawn from the
+    same generator after the tokens, as the reference does (the published
+    Whisper takes 1500 frames; the stub ties their count to the prompt).
+    ``params``: the model to serve (default: initialised from seed 0 on
+    ``device``).  Returns the ``(batch, new_tokens)`` int32
     tokens and the timings ``prefill_s``, ``decode_s`` and
     ``decode_tok_s`` (host clock around work that ends in a device
     synchronise)."""
@@ -113,7 +118,10 @@ def serve_lm(cfg: ArchConfig, batch: int, prompt_len: int, new_tokens: int,
     decode = ST.build_decode_step(cfg, dtype=dtype, quant=quant)
     rng = np.random.default_rng(0)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, prompt_len)))
-    tokens = tokens.to(device=dev, dtype=torch.int32)
+    batch_in = {'tokens': tokens.to(device=dev, dtype=torch.int32)}
+    if cfg.family == 'encdec':
+        frames = rng.normal(size=(batch, prompt_len, cfg.d_model))
+        batch_in['frames'] = torch.from_numpy(frames).to(dev, dtype)
 
     def sync():
         if dev.type == 'cuda':
@@ -121,7 +129,7 @@ def serve_lm(cfg: ArchConfig, batch: int, prompt_len: int, new_tokens: int,
 
     sync()
     t0 = time.perf_counter()
-    tok, state = prefill(params, state, {'tokens': tokens})
+    tok, state = prefill(params, state, batch_in)
     sync()
     t_prefill = time.perf_counter() - t0
     out = [tok]
@@ -350,8 +358,10 @@ def main(argv=None) -> None:
     ap.add_argument('--prompt', type=int, default=16)
     ap.add_argument('--tokens', type=int, default=16)
     ap.add_argument('--w8a8', action='store_true',
-                    help='LM mode: quantized (W8A8) projections and MLP; '
-                         'diffusion mode: alias for --precision w8a8')
+                    help='LM mode: quantized (W8A8) projections and MLP '
+                         '(the encoder-decoder ignores it, as the '
+                         'reference); diffusion mode: alias for '
+                         '--precision w8a8')
     ap.add_argument('--device', default='cuda',
                     help="'cuda' (default) or 'cpu' (plain PyTorch kernels)")
     ap.add_argument('--diffusion', action='store_true',

@@ -1,7 +1,7 @@
 """Attention, port of ``repro/models/attention.py``: grouped-query
-attention with RoPE and a KV cache, and MLA (DeepSeek-V2's multi-head
-latent attention) with its compressed cache.  M-RoPE comes with the VLM
-slice (ROADMAP Queue 1 item 7e).
+attention with RoPE or M-RoPE (Qwen2-VL's multimodal rotary embedding),
+a KV cache and cross-attention into an encoder's memory, and MLA
+(DeepSeek-V2's multi-head latent attention) with its compressed cache.
 
 Paper hooks, as in the reference: C2, the softmax always goes through
 the LSE decomposition (``gqa_core``: grouped einsum + ``lse_softmax``;
@@ -18,7 +18,8 @@ reference's ``gqa_core`` over the whole cache, whose rows past S weigh
 ``exp(-1e30 - m) = 0``.  A decode step (``cache_pos > 0``) is
 ``gqa_core`` over the whole cache, as in the reference.  The cache is
 updated in place and the same dict comes back as the new cache (the
-reference returns an updated copy).
+reference returns an updated copy).  Cross-attention into an encoder's
+memory is ``gqa_core``, as in the reference.
 
 MLA keeps both of the reference's paths.  Without a cache it decompresses
 K and V from the latent ``c_kv``; with a cache (the prefill, whose
@@ -53,10 +54,9 @@ def _rope_freqs(hd: int, theta: float, device) -> torch.Tensor:
                                          device=device) / hd))
 
 
-def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
-    """x (B, S, H, hd), pos (B, S) -> rotated x (half-split convention)."""
-    freqs = _rope_freqs(x.shape[-1], theta, x.device)
-    ang = pos[..., None].float() * freqs                 # (B, S, hd/2)
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """x (B, S, H, hd) rotated by the angles ang (B, S, hd/2), half-split
+    convention, in float32."""
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
@@ -64,13 +64,39 @@ def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
+    """x (B, S, H, hd), pos (B, S) -> rotated x (half-split convention)."""
+    freqs = _rope_freqs(x.shape[-1], theta, x.device)
+    return _rotate(x, pos[..., None].float() * freqs)
+
+
+def mrope(x: torch.Tensor, pos3: torch.Tensor, theta: float,
+          sections: Tuple[int, ...]) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL): pos3 (B, S, 3) holds the (t, h, w)
+    position ids; the hd/2 frequency channels split into ``sections``
+    (in order), each rotated by its own stream.  For pure text the three
+    streams are equal and M-RoPE is RoPE."""
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f'M-RoPE sections {sections} do not cover the '
+                         f'{hd // 2} frequency channels of head dim {hd}')
+    freqs = _rope_freqs(hd, theta, x.device)
+    sec_id = torch.repeat_interleave(
+        torch.arange(len(sections), device=x.device),
+        torch.tensor(sections, device=x.device))             # (hd/2,)
+    return _rotate(x, pos3.float()[..., sec_id] * freqs)
+
+
 def apply_rope(cfg: ArchConfig, x: torch.Tensor,
                pos: torch.Tensor) -> torch.Tensor:
+    """RoPE, M-RoPE or nothing, per ``cfg.rope``.  Under M-RoPE a 2-D
+    ``pos`` (B, S) is text: it is broadcast to three equal streams."""
     if cfg.rope == 'none':
         return x
     if cfg.rope == 'mrope':
-        raise NotImplementedError('M-RoPE is ported with the VLM family '
-                                  '(ROADMAP Queue 1 item 7e)')
+        if pos.dim() == 2:
+            pos = pos[..., None].expand(*pos.shape, 3)
+        return mrope(x, pos, cfg.rope_theta, cfg.mrope_sections)
     return rope(x, pos, cfg.rope_theta)
 
 
@@ -131,47 +157,66 @@ class Attention(nn.Module):
 
 
 def _project_kv(p: Attention, cfg: ArchConfig, x_kv: torch.Tensor,
-                pos: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                pos: Optional[torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K and V of ``x_kv``; K rotated at ``pos`` unless it is None (the
+    encoder memory of cross-attention)."""
     B, T, _ = x_kv.shape
     k = p.wk(x_kv).reshape(B, T, cfg.n_kv_heads, cfg.hd)
     v = p.wv(x_kv).reshape(B, T, cfg.n_kv_heads, cfg.hd)
-    k = apply_rope(cfg, k, pos)
+    if pos is not None:
+        k = apply_rope(cfg, k, pos)
     if cfg.kv_repeat > 1:     # the reference's logical replication
         k = k.repeat_interleave(cfg.kv_repeat, dim=2)
         v = v.repeat_interleave(cfg.kv_repeat, dim=2)
     return k, v
 
 
+def _positions(x: torch.Tensor, cache_pos: Optional[int]) -> torch.Tensor:
+    """(B, S) positions counting from ``cache_pos`` (0 without a cache)."""
+    B, S, _ = x.shape
+    start = 0 if cache_pos is None else cache_pos
+    pos = torch.arange(start, start + S, device=x.device)[None, :]
+    return pos.expand(B, S)
+
+
 def attention(p: Attention, cfg: ArchConfig, x: torch.Tensor, *,
+              pos: Optional[torch.Tensor] = None,
+              memory: Optional[torch.Tensor] = None,
               cache: Optional[Dict[str, torch.Tensor]] = None,
               cache_pos: Optional[int] = None,
               causal: bool = True,
               impl: str = 'xla',
               quant: bool = False
               ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """One self-attention layer; returns (out, new_cache).  Positions
-    count from ``cache_pos`` (0 without a cache).
+    """One attention layer; returns (out, new_cache).  ``pos``: (B, S)
+    positions, or (B, S, 3) M-RoPE streams; by default they count from
+    ``cache_pos`` (0 without a cache).
 
     Modes: no cache (train / plain forward), ``cache`` with
     ``cache_pos = 0`` (prefill: fills the cache), ``cache`` with
-    ``cache_pos`` = the current length (decode).  The reference's
-    cross-attention (``memory``) and explicit positions come with the
-    encoder-decoder and VLM slices."""
+    ``cache_pos`` = the current length (decode).  ``memory`` (B, T, d)
+    switches to cross-attention: K and V are projected from it without
+    rotation, ``gqa_core`` attends to all of it with no mask, and the
+    cache comes back as passed."""
     B, S, _ = x.shape
     hd, H = cfg.hd, cfg.n_heads
     if impl not in ('xla', 'pallas'):
         raise ValueError(f"impl must be 'xla' or 'pallas', got {impl!r}")
-    start = 0 if cache_pos is None else cache_pos
-    pos = torch.arange(start, start + S, device=x.device)[None, :]
-    pos = pos.expand(B, S)
+    if pos is None:
+        pos = _positions(x, cache_pos)
     pol = 'w8a8' if quant else None
     q = apply_rope(cfg, p.wq(x, pol).reshape(B, S, H, hd), pos)
-    k, v = _project_kv(p, cfg, x, pos)
 
-    if cache is None:                            # plain self-attention
+    if memory is not None:                       # cross-attention
+        k, v = _project_kv(p, cfg, memory, None)
+        out = gqa_core(q, k, v, causal=False)
+    elif cache is None:                          # plain self-attention
+        k, v = _project_kv(p, cfg, x, pos)
         core = flash_core if impl == 'pallas' else gqa_core
         out = core(q, k, v, causal=causal)
     else:                                        # prefill or decode
+        k, v = _project_kv(p, cfg, x, pos)
         ck, cv = cache['k'], cache['v']
         ck[:, cache_pos:cache_pos + S] = k.to(ck.dtype)
         cv[:, cache_pos:cache_pos + S] = v.to(cv.dtype)
@@ -222,12 +267,14 @@ def _raw(lin: L.Linear) -> torch.Tensor:
 
 
 def mla_attention(p: MLA, cfg: ArchConfig, x: torch.Tensor, *,
+                  pos: Optional[torch.Tensor] = None,
                   cache: Optional[Dict[str, torch.Tensor]] = None,
                   cache_pos: Optional[int] = None,
                   quant: bool = False
                   ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """One MLA layer; returns (out, new_cache).  Positions count from
-    ``cache_pos`` (0 without a cache).  Without a cache: the decompressed
+    """One MLA layer; returns (out, new_cache).  ``pos`` (B, S): by
+    default positions count from ``cache_pos`` (0 without a cache).
+    Without a cache: the decompressed
     path.  With one (prefill or decode): ``c_kv`` and ``k_pe`` are written
     at ``cache_pos``, in place, and the absorbed path attends over the
     whole cache, rows past ``cache_pos + S`` masked."""
@@ -236,9 +283,8 @@ def mla_attention(p: MLA, cfg: ArchConfig, x: torch.Tensor, *,
     H = cfg.n_heads
     nope, rpe, vd, rank = (m.qk_nope_head_dim, m.qk_rope_head_dim,
                            m.v_head_dim, m.kv_lora_rank)
-    start = 0 if cache_pos is None else cache_pos
-    pos = torch.arange(start, start + S, device=x.device)[None, :]
-    pos = pos.expand(B, S)
+    if pos is None:
+        pos = _positions(x, cache_pos)
     pol = 'w8a8' if quant else None
     q = p.wq(x, pol).reshape(B, S, H, nope + rpe)
     q_nope = q[..., :nope].float()

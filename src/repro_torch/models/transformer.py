@@ -1,5 +1,5 @@
-"""Decoder-only LM covering the dense, MoE, SSM and hybrid families:
-port of ``repro/models/transformer.py``.
+"""Decoder-only LM covering the dense, MoE, SSM, hybrid and VLM
+families: port of ``repro/models/transformer.py``.
 
 The reference stacks the params of its scanned units on a leading axis
 and scans them; the port keeps the units in an ``nn.ModuleList`` and
@@ -12,9 +12,10 @@ MoE FFN on odd positions).  So the ``state_dict`` keys are
 with the leading axis of ``n_scan_steps`` units
 (``bridge.load_jax_lm_params`` unstacks it).  The cache is a list with
 one ``{'sub{j}': ...}`` per unit (GQA ``k``/``v``, MLA ``c_kv``/``k_pe``,
-Mamba ``conv``/``state``), updated in place.  The encoder-decoder and
-VLM families raise at ``init_lm``, naming the ROADMAP item that ports
-them; ``lm_loss`` waits for the training slice.
+Mamba ``conv``/``state``), updated in place.  The VLM family (Qwen2-VL)
+is the dense blocks under M-RoPE; its vision frontend is a stub that
+hands ``lm_apply`` the ``inputs_embeds``.  The encoder-decoder family
+lives in ``models/encdec.py``; ``lm_loss`` waits for the training slice.
 """
 from __future__ import annotations
 
@@ -33,18 +34,6 @@ from repro_torch.models.attention import (MLA, Attention, attention,
 
 NORMS = {'rmsnorm': (L.RMSNorm, L.rmsnorm),
          'layernorm': (L.LayerNorm, L.layernorm)}
-
-
-def _check_ported(cfg: ArchConfig) -> None:
-    missing = []
-    if cfg.family == 'encdec':
-        missing.append('encoder-decoder (item 7d)')
-    if cfg.family == 'vlm' or cfg.rope == 'mrope':
-        missing.append('M-RoPE / VLM (item 7e)')
-    if missing:
-        raise NotImplementedError(f'{cfg.name}: the port has the decoder-'
-                                  'only LM families; not yet ported: '
-                                  + ', '.join(missing))
 
 
 def _block_kinds(cfg: ArchConfig):
@@ -99,17 +88,17 @@ class Block(nn.Module):
 
 def apply_block(p: Block, cfg: ArchConfig, x: torch.Tensor, *,
                 cache: Optional[Dict] = None, cache_pos: Optional[int] = None,
-                quant: bool = False):
+                pos: Optional[torch.Tensor] = None, quant: bool = False):
     norm = NORMS[cfg.norm][1]
     for i, (mixer, ffn) in enumerate(_block_kinds(cfg)):
         sub = getattr(p, f'sub{i}')
         sub_cache = None if cache is None else cache[f'sub{i}']
         h = norm(sub.mix_norm, x)
         if mixer == 'A':
-            h, _ = attention(sub.attn, cfg, h, cache=sub_cache,
+            h, _ = attention(sub.attn, cfg, h, pos=pos, cache=sub_cache,
                              cache_pos=cache_pos, quant=quant)
         elif mixer == 'L':
-            h, _ = mla_attention(sub.attn, cfg, h, cache=sub_cache,
+            h, _ = mla_attention(sub.attn, cfg, h, pos=pos, cache=sub_cache,
                                  cache_pos=cache_pos, quant=quant)
         else:
             h, _ = SSM.mamba(sub.mamba, cfg, h, cache=sub_cache, quant=quant)
@@ -144,7 +133,6 @@ def init_block_cache(cfg: ArchConfig, batch: int, max_len: int,
 class LM(nn.Module):
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
-        _check_ported(cfg)
         self.embed = L.Embedding(cfg.vocab, cfg.d_model, device)
         self.blocks = nn.ModuleList(Block(cfg, device)
                                     for _ in range(n_scan_steps(cfg)))
@@ -168,24 +156,29 @@ def _readout(p: LM, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def _apply_blocks(p: LM, cfg: ArchConfig, x: torch.Tensor, *, cache=None,
-                  cache_pos=None, quant=False):
+                  cache_pos=None, pos=None, quant=False):
     new_cache: Optional[List[Any]] = None if cache is None else []
     for i, blk in enumerate(p.blocks):
         x, nc = apply_block(blk, cfg, x,
                             cache=None if cache is None else cache[i],
-                            cache_pos=cache_pos, quant=quant)
+                            cache_pos=cache_pos, pos=pos, quant=quant)
         if new_cache is not None:
             new_cache.append(nc)
     return x, new_cache
 
 
-def lm_apply(p: LM, cfg: ArchConfig, tokens: torch.Tensor, *,
+def lm_apply(p: LM, cfg: ArchConfig, tokens: Optional[torch.Tensor], *,
              dtype: torch.dtype = torch.float32,
+             pos: Optional[torch.Tensor] = None,
+             inputs_embeds: Optional[torch.Tensor] = None,
              quant: bool = False) -> torch.Tensor:
-    """tokens (B, S) -> logits (B, S, vocab), no cache.  (The reference's
-    ``pos`` and ``inputs_embeds`` serve the frontend families.)"""
-    x = L.embedding(p.embed, tokens, dtype)
-    x, _ = _apply_blocks(p, cfg, x, quant=quant)
+    """tokens (B, S) -> logits (B, S, vocab), no cache.  ``inputs_embeds``
+    (B, S, d) replaces the embedding lookup (the modality frontends'
+    stubs); ``pos`` (B, S), or (B, S, 3) M-RoPE streams, replaces the
+    positions 0 .. S-1 in every attention mixer."""
+    x = (L.embedding(p.embed, tokens, dtype) if inputs_embeds is None
+         else inputs_embeds.to(dtype))
+    x, _ = _apply_blocks(p, cfg, x, pos=pos, quant=quant)
     return _readout(p, cfg, x)
 
 

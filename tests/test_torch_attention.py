@@ -3,7 +3,8 @@ wrapper (the plain streaming version a CPU tensor runs) against the
 reference wrapper with its Pallas kernel in interpret mode, the streaming
 LSE softmax, RoPE, ``gqa_core``, and the attention layer without a cache
 (``impl`` 'xla' and 'pallas'), as a prefill into a cache and as decode
-steps against it.
+steps against it; M-RoPE, cross-attention into a memory and explicit
+positions.
 
 Tolerances: 2e-5 for attention outputs, the reference kernel test's own
 (float32 sums in another order: tiles of 128 against einsums); 1e-5 for
@@ -280,12 +281,55 @@ def test_rope_matches_reference(hd, theta):
 
 
 def test_apply_rope_none_passes_through_and_mrope_waits():
+    """``rope='none'`` returns its input; under M-RoPE a 2-D ``pos`` is
+    text, three equal streams, and M-RoPE is then RoPE."""
     x = torch.ones(1, 2, 1, 4)
     cfg = treg.smoke_config('whisper-base')          # rope = 'none'
     assert TA.apply_rope(cfg, x, torch.zeros(1, 2)) is x
-    with pytest.raises(NotImplementedError, match='item 7e'):
-        TA.apply_rope(treg.smoke_config('qwen2-vl-7b'), x,
-                      torch.zeros(1, 2))
+    cfg = treg.smoke_config('qwen2-vl-7b')           # sections (2, 3, 3)
+    x = _t(_np((2, 9, 3, cfg.hd), 13))
+    pos = _t(np.stack([np.arange(9), np.arange(30, 39)]).astype(np.int32))
+    got = TA.apply_rope(cfg, x, pos)
+    np.testing.assert_allclose(got.numpy(),
+                               TA.rope(x, pos, cfg.rope_theta).numpy(),
+                               rtol=0, atol=0)
+
+
+def _pos3(B, S, seed):
+    """(B, S, 3) M-RoPE position ids whose t, h and w streams differ."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(S)[None, :] + rng.integers(0, 40, (B, 1))
+    return np.stack([t, rng.integers(0, 64, (B, S)),
+                     rng.integers(0, 64, (B, S))], -1).astype(np.int32)
+
+
+MROPE_CASES = [(16, 1e6, (2, 3, 3)), (128, 1e6, (16, 24, 24))]
+
+
+@pytest.mark.parametrize('hd,theta,sections', MROPE_CASES)
+def test_mrope_matches_reference(hd, theta, sections):
+    x, pos3 = _np((2, 9, 3, hd), 40), _pos3(2, 9, 41)
+    want = JA.mrope(jnp.asarray(x), jnp.asarray(pos3), theta, sections)
+    got = TA.mrope(_t(x), _t(pos3), theta, sections)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+@pytest.mark.parametrize('hd,theta,sections', MROPE_CASES)
+def test_mrope_with_swapped_sections_misses_the_tolerance(hd, theta,
+                                                          sections):
+    """The tolerance above can see which stream rotates which channels:
+    the sections in reverse order (the w stream first) miss it."""
+    x, pos3 = _np((2, 9, 3, hd), 40), _pos3(2, 9, 41)
+    want = np.asarray(JA.mrope(jnp.asarray(x), jnp.asarray(pos3), theta,
+                               sections))
+    got = TA.mrope(_t(x), _t(pos3), theta, sections[::-1]).numpy()
+    assert np.abs(got - want).max() > 100 * 1e-5
+
+
+def test_mrope_refuses_sections_that_miss_the_channels():
+    with pytest.raises(ValueError, match='sections'):
+        TA.mrope(torch.zeros(1, 2, 1, 16), torch.zeros(1, 2, 3), 1e4,
+                 (2, 3, 4))
 
 
 @pytest.mark.parametrize('S,T,causal,q_offset,kv_len', [
@@ -362,6 +406,47 @@ def test_attention_prefill_and_decode_match_reference(arch, kv_repeat):
     for name in ('k', 'v'):
         np.testing.assert_allclose(tc[name].numpy(), np.asarray(jc[name]),
                                    atol=1e-5)
+
+
+@pytest.mark.parametrize('arch', ['whisper-base', 'qwen2-vl-7b'])
+def test_cross_attention_matches_reference(arch):
+    """``memory`` switches to cross-attention: K/V from the memory, not
+    rotated (q is, under Qwen's M-RoPE), no mask, the cache passed
+    through."""
+    jcfg, tcfg, jp, tp = _layer(arch)
+    x, mem = _np((2, 5, jcfg.d_model), 26), _np((2, 13, jcfg.d_model), 27)
+    want, _ = JA.attention(jp, jcfg, jnp.asarray(x), memory=jnp.asarray(mem))
+    cache = TA.init_attention_cache(tcfg, 2, 8, torch.float32)
+    got, out_cache = TA.attention(tp, tcfg, _t(x), memory=_t(mem),
+                                  cache=cache)
+    assert out_cache is cache and not cache['k'].any()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+@pytest.mark.parametrize('arch,streams', [('internlm2-1.8b', 1),
+                                          ('qwen2-vl-7b', 1),
+                                          ('qwen2-vl-7b', 3)])
+def test_attention_with_explicit_pos_matches_reference(arch, streams):
+    """An explicit ``pos`` (2-D, offset per row; or three distinct M-RoPE
+    streams) without a cache and as a prefill into one."""
+    jcfg, tcfg, jp, tp = _layer(arch)
+    B, S = 2, 9
+    pos = _pos3(B, S, 28)
+    if streams == 1:
+        pos = pos[..., 0]
+    x = _np((B, S, jcfg.d_model), 29)
+    want, _ = JA.attention(jp, jcfg, jnp.asarray(x), pos=jnp.asarray(pos))
+    got, _ = TA.attention(tp, tcfg, _t(x), pos=_t(pos))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    jc = JA.init_attention_cache(jcfg, B, S + 2, jnp.float32)
+    tc = TA.init_attention_cache(tcfg, B, S + 2, torch.float32)
+    want, jc = JA.attention(jp, jcfg, jnp.asarray(x), pos=jnp.asarray(pos),
+                            cache=jc, cache_pos=0)
+    got, tc = TA.attention(tp, tcfg, _t(x), pos=_t(pos), cache=tc,
+                           cache_pos=0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    np.testing.assert_allclose(tc['k'].numpy(), np.asarray(jc['k']),
+                               atol=1e-5)
 
 
 def test_prefill_reads_the_cache_in_its_dtype():
@@ -442,6 +527,15 @@ def test_mla_prefill_and_decode_match_reference(quantize):
     for name in ('c_kv', 'k_pe'):
         np.testing.assert_allclose(tc[name].numpy(), np.asarray(jc[name]),
                                    atol=1e-5)
+
+
+def test_mla_with_explicit_pos_matches_reference():
+    jcfg, tcfg, jp, tp = _mla_layer()
+    x = _np((2, 10, jcfg.d_model), 36)
+    pos = _pos3(2, 10, 37)[..., 0]
+    want, _ = JA.mla_attention(jp, jcfg, jnp.asarray(x), pos=jnp.asarray(pos))
+    got, _ = TA.mla_attention(tp, tcfg, _t(x), pos=_t(pos))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
 
 def test_mla_absorbed_path_equals_the_decompressed_one():

@@ -42,6 +42,16 @@ SERVING_CLI_MODULES = [
     'examples/serve_diffusion_torch.py',
 ]
 
+# the LM families' modules: the encoder-decoder and the M-RoPE attention,
+# the LM and the steps that dispatch between them
+LM_FAMILY_MODULES = [
+    'src/repro_torch/models/encdec.py',
+    'src/repro_torch/models/attention.py',
+    'src/repro_torch/models/transformer.py',
+    'src/repro_torch/launch/steps.py',
+    'src/repro_torch/bridge.py',
+]
+
 
 def _imported_modules(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
@@ -59,8 +69,8 @@ def test_source_never_imports_jax_or_the_reference(source):
         assert top not in ('jax', 'jaxlib', 'repro'), f'{source} imports {mod}'
 
 
-@pytest.mark.parametrize('source',
-                         SERVING_FEATURE_MODULES + SERVING_CLI_MODULES)
+@pytest.mark.parametrize('source', SERVING_FEATURE_MODULES
+                         + SERVING_CLI_MODULES + LM_FAMILY_MODULES)
 def test_serving_feature_modules_are_covered(source):
     assert source in SOURCES
     mods = {m.split('.')[0] for m in _imported_modules(ROOT / source)}

@@ -4,10 +4,13 @@ through ``lm_apply``, ``lm_prefill`` followed by ``lm_decode`` steps, and
 ``serve_lm``, for the smoke InternLM2 (RMSNorm, gated swish, GQA rep 2,
 no biases), StarCoder2 (LayerNorm, biases, tanh-gelu, GQA rep 2),
 Granite-MoE (MoE, top-2 of 4 experts, tied embeddings), DeepSeek-V2-Lite
-(MLA + MoE with shared experts), Mamba2 (SSD) and Jamba (one hybrid unit
-of 8 sub-layers: Mamba and attention, dense and MoE FFNs); the config
-copies field for field; the loader on a hybrid tree; the SSM constants;
-the families not ported yet raise.
+(MLA + MoE with shared experts), Mamba2 (SSD), Jamba (one hybrid unit
+of 8 sub-layers: Mamba and attention, dense and MoE FFNs) and Qwen2-VL
+(M-RoPE with sections (2, 3, 3), biased GQA rep 2; also through
+``lm_apply``'s ``inputs_embeds`` with three distinct position streams);
+the config copies field for field; the loader on a hybrid tree; the SSM
+constants.  The encoder-decoder family has its own file,
+``test_torch_encdec.py``.
 
 Tolerances: fp32 logits 1e-4, float32 matmuls and softmaxes summed in
 another order over two layers (each layer agrees to ~1e-6); w8a8 1e-3,
@@ -33,7 +36,8 @@ from repro_torch.models import transformer as TT
 from repro_torch.models.ssm import ssm_constants as SSM_CONSTANTS
 
 ARCHS = ['internlm2-1.8b', 'starcoder2-7b', 'granite-moe-1b-a400m',
-         'deepseek-v2-lite-16b', 'mamba2-2.7b', 'jamba-1.5-large-398b']
+         'deepseek-v2-lite-16b', 'mamba2-2.7b', 'jamba-1.5-large-398b',
+         'qwen2-vl-7b']
 NEW_ARCHS = ARCHS[2:]
 FP32_ATOL = 1e-4
 W8A8_ATOL = 1e-3
@@ -180,11 +184,37 @@ def test_init_follows_reference_distributions():
     assert torch.all(sub.mix_norm.bias == 0)
 
 
-@pytest.mark.parametrize('arch,item', [('whisper-base', '7d'),
-                                       ('qwen2-vl-7b', '7e')])
-def test_unported_families_raise_naming_their_roadmap_item(arch, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tsteps.init_params(torch.Generator(), treg.smoke_config(arch))
+@pytest.mark.parametrize('quant', [False, True])
+def test_lm_apply_with_inputs_embeds_and_mrope_streams(quant):
+    """The VLM's frontend stub: ``inputs_embeds`` in place of the token
+    lookup and (B, S, 3) M-RoPE positions whose t, h and w streams
+    differ, against the reference's ``lm_apply`` with the same."""
+    jcfg, tcfg, jp, tp = _models('qwen2-vl-7b')
+    rng = np.random.default_rng(7)
+    B, S = 2, 11
+    embeds = (rng.normal(size=(B, S, jcfg.d_model)) * 0.5).astype(np.float32)
+    t = np.arange(S)[None, :] + rng.integers(0, 30, (B, 1))
+    pos3 = np.stack([t, rng.integers(0, 20, (B, S)),
+                     rng.integers(0, 20, (B, S))], -1).astype(np.int32)
+    want = JT.lm_apply(jp, jcfg, None, pos=jnp.asarray(pos3),
+                       inputs_embeds=jnp.asarray(embeds), quant=quant)
+    got = TT.lm_apply(tp, tcfg, None, pos=torch.from_numpy(pos3),
+                      inputs_embeds=torch.from_numpy(embeds), quant=quant)
+    tol = W8A8_ATOL if quant else FP32_ATOL
+    assert got.shape == (B, S, jcfg.vocab)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=tol)
+    # the tolerance sees the streams: text positions (the t stream alone)
+    # move the logits beyond it
+    text = TT.lm_apply(tp, tcfg, None, pos=torch.from_numpy(pos3[..., 0]),
+                       inputs_embeds=torch.from_numpy(embeds), quant=quant)
+    assert (text - got).abs().max() > 2 * tol
+
+
+def test_serve_main_serves_the_vlm_on_cpu(capsys):
+    tserve.main(['--arch', 'qwen2-vl-7b', '--preset', 'smoke', '--device',
+                 'cpu', '--prompt', '5', '--tokens', '3', '--w8a8'])
+    out = capsys.readouterr().out
+    assert '[serve] prefill 5 toks x2' in out and 'sample token ids' in out
 
 
 def test_lm_loader_is_strict():
