@@ -120,7 +120,25 @@ Phases, each printing its own lines:
    runs at fp32 and w8a8 (1000 stub frames for Whisper's encoder):
    launches held to ``ENCDEC_VLM_PLAN`` (Whisper 6 flash per prefill and
    0 W8A8, its w8a8 tokens equal to its fp32 tokens; Qwen2-VL 28 flash
-   and 140 W8A8 per w8a8 forward).
+   and 140 W8A8 per w8a8 forward);
+11. train: every earlier model freed (the allocated memory printed
+   first).  (a) the smoke InternLM2, Granite-MoE, DeepSeek-V2-Lite and
+   Mamba2, 3 ``build_train_step`` steps at float32 on the card and on the
+   CPU from the same parameters and ``token_batch`` batches, losses and
+   grad norms within ``TRAIN_SMALL_RTOL``; then a ``Trainer`` on the
+   card, 4 steps against 2, a checkpoint under ``build/train-smoke``, a
+   new ``Trainer`` that restores it and 2 more (losses and parameters
+   within ``TRAIN_RESUME_TOL``); (b) InternLM2-1.8B at full width and
+   depth through ``Trainer.run``, remat 'full', 6 steps of 4 x 1024
+   tokens, no checkpoint: finite losses and grad norms, the first loss
+   within ``TRAIN_LOSS0_ATOL`` of ln V + 0.02^2 d / 2, and one more step
+   on step 0's batch from the initial state lowering that batch's loss.
+   It prints the parameter count, the first and the steady step's
+   seconds, tokens/s, model FLOPs a step and their share of the float32
+   peak, and the peak memory.  Training runs no kernel of ``kernels/``
+   (the reference's loss takes the float projections and ``gqa_core``,
+   and neither package has a backward kernel): the counters must stay 0
+   across every train step.
 
 Every phase prints its seconds (``[time]``).
 
@@ -133,7 +151,8 @@ they are one prefill's worth (24 launches at the path shape), with
 ``passes`` (TF32 products per float32 product) and ``bound_f32_ms``
 (the float32 CUDA-core bound) beside them.
 ``launches`` is each kernel's count over the runs of phases 5, 5b, 7, 8,
-9 and 10, each read from counters set to 0 just before its run.
+9 and 10, each read from counters set to 0 just before its run (phase
+11's runs launch none, which it checks).
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, and the run then exits non-zero with no result; so does a run
 without CUDA or without the repository beside this file.
@@ -239,6 +258,30 @@ ENCDEC_VLM_PLAN = {'whisper-base': (6, 0), 'qwen2-vl-7b': (28, 140)}
 SMALL_LM_ARCHS = (LM_ARCH, 'granite-moe-1b-a400m', 'deepseek-v2-lite-16b',
                   'mamba2-2.7b', 'jamba-1.5-large-398b', 'whisper-base',
                   'qwen2-vl-7b')
+# phase 11, training.  (a) the smoke configs of these families, 3 train
+# steps at float32 on the card and on the CPU from one set of parameters:
+# losses and grad norms within 1e-4 relative (float32 sums in another
+# order, ~1e-6, which Adam's first step can turn into +-lr on a parameter
+# whose gradient is ~1e-9 from zero); then a Trainer on the card, 4 steps
+# against 2, a checkpoint under build/train-smoke, a restore and 2 more:
+# the same kernels on the same values, only the atomic adds of the
+# embedding's gradient in another order, so losses within 1e-6 relative
+# and parameters within 1e-6
+TRAIN_SMALL_ARCHS = (LM_ARCH, 'granite-moe-1b-a400m', 'deepseek-v2-lite-16b',
+                     'mamba2-2.7b')
+TRAIN_SMALL_STEPS = 3
+TRAIN_SMALL_RTOL = 1e-4
+TRAIN_RESUME_TOL = 1e-6
+TRAIN_OUT = ROOT / 'build' / 'train-smoke'
+# (b) InternLM2-1.8B at full width and depth, float32, remat 'full':
+# serving's batch 4 at about its 1000-token prompt, 4096 tokens a step, 6
+# steps.  The first loss: the hidden state leaves the final RMSNorm with
+# unit RMS and the head is drawn with stddev 0.02, so the logits are ~N(0,
+# 0.02^2 d_model) and the expected cross-entropy is ln V + 0.02^2 d / 2 =
+# 11.845 (ln V = 11.435); 0.2 covers the draw (a 2-layer cut of the model
+# on the CPU: 11.812)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 6
+TRAIN_LOSS0_ATOL = 0.2
 # (BH, S, T, d, causal, q dtype, k/v dtype): the InternLM2-1.8B prefill
 # (4 x 16 heads, 1000 tokens, not a multiple of the 64-row tile) in the
 # path's float32, all-bf16, and float32 q over a bf16 cache; the
@@ -1706,6 +1749,211 @@ def decode_overlap_walls(torch, pipe, card):
           + json.dumps({k: round(v, 3) for k, v in walls.items()}))
 
 
+def phase_train(torch, ops, card):
+    """Phase 11: training, every earlier model freed.  (a) the smoke
+    configs of ``TRAIN_SMALL_ARCHS`` on the card against the CPU, and a
+    ``Trainer``'s resume on the card; (b) InternLM2-1.8B at full width
+    and depth (``train_full``)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f'[train] {torch.cuda.memory_allocated() / 2**30:.2f} GiB '
+          'allocated on the card before training')
+    for arch in TRAIN_SMALL_ARCHS:
+        train_small(torch, ops, arch)
+    train_resume(torch)
+    train_full(torch, ops, card)
+
+
+def train_small(torch, ops, arch):
+    """``TRAIN_SMALL_STEPS`` train steps of the smoke ``arch`` at float32
+    on the card and on the CPU from the same parameters and
+    ``token_batch`` batches (4 x 64): losses and grad norms compared step
+    by step, and no kernel launched."""
+    import copy
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.data.pipeline import TokenPipelineConfig, token_batch
+    from repro_torch.launch import steps as ST
+    from repro_torch.optim.adamw import AdamWConfig, init_adamw
+    cfg = smoke_config(arch)
+    models = {'cpu': ST.init_params(torch.Generator().manual_seed(0), cfg,
+                                    'cpu')}
+    models['cuda'] = copy.deepcopy(models['cpu']).to('cuda')
+    step = ST.build_train_step(cfg, AdamWConfig(
+        lr=1e-3, warmup_steps=1, total_steps=TRAIN_SMALL_STEPS),
+        dtype=torch.float32)
+    data = TokenPipelineConfig(cfg.vocab, seq_len=64, global_batch=4)
+    opts = {d: init_adamw(list(ST.train_params(m).values()))
+            for d, m in models.items()}
+    ops.reset_launches()
+    errs, losses = [], []
+    for s in range(TRAIN_SMALL_STEPS):
+        out = {}
+        for d in models:
+            models[d], opts[d], m = step(models[d], opts[d],
+                                         token_batch(data, s, device=d))
+            out[d] = (m['loss'].item(), m['grad_norm'].item())
+        errs.append(max(abs(a - b) / abs(b)
+                        for a, b in zip(out['cuda'], out['cpu'])))
+        losses.append(out['cpu'][0])
+    launches = sum(ops.launch_counts().values())
+    print(f'[train-small] {cfg.name}: {TRAIN_SMALL_STEPS} steps of 4 x 64 '
+          f'tokens, losses {[round(x, 4) for x in losses]}; card vs CPU '
+          f'max relative err of loss and grad norm {max(errs):.3e} (tol '
+          f'{TRAIN_SMALL_RTOL}); kernel launches {launches}')
+    check(max(errs) <= TRAIN_SMALL_RTOL, f'train {cfg.name}: card vs CPU '
+          f'{errs} > {TRAIN_SMALL_RTOL}')
+    check(launches == 0, f'train {cfg.name}: {launches} kernel launches')
+
+
+def train_resume(torch):
+    """A ``Trainer`` on the card (the smoke InternLM2): 4 steps in one
+    run against 2 steps, a checkpoint under ``build/train-smoke``, a new
+    ``Trainer`` that restores it and 2 more steps; losses and final
+    parameters compared."""
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.data.pipeline import TokenPipelineConfig
+    from repro_torch.launch.train import Trainer
+    from repro_torch.optim.adamw import AdamWConfig
+    cfg = smoke_config(LM_ARCH)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    data = TokenPipelineConfig(cfg.vocab, seq_len=64, global_batch=4)
+    shutil.rmtree(TRAIN_OUT, ignore_errors=True)
+    whole = Trainer(cfg, opt, device='cuda')
+    want = whole.run(data, 4, log_every=100)
+    first = Trainer(cfg, opt, ckpt_dir=str(TRAIN_OUT), device='cuda')
+    got = first.run(data, 2, log_every=100)
+    second = Trainer(cfg, opt, ckpt_dir=str(TRAIN_OUT), device='cuda')
+    second.maybe_restore()
+    check(second.start_step == 2 and second.opt.step.item() == 2,
+          f'resume: start step {second.start_step}, optimizer step '
+          f'{second.opt.step.item()}; want 2')
+    got += second.run(data, 4, log_every=100)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    param_err = max((a - b).abs().max().item() for a, b in zip(
+        second.params.parameters(), whole.params.parameters()))
+    print(f'[train-small] {cfg.name} Trainer on the card: 4 steps against '
+          f'2 + checkpoint ({TRAIN_OUT.relative_to(ROOT)}, steps '
+          f'{sorted(os.listdir(TRAIN_OUT))}) + restore + 2: losses '
+          f'{[round(x, 5) for x in want]}, max relative err {loss_err:.3e}; '
+          f'parameters max abs err {param_err:.3e} (tol {TRAIN_RESUME_TOL})')
+    check(len(got) == 4 and loss_err <= TRAIN_RESUME_TOL
+          and param_err <= TRAIN_RESUME_TOL,
+          f'resume: losses {got} vs {want}, parameters {param_err}')
+
+
+def train_full(torch, ops, card):
+    """InternLM2-1.8B at full width and depth through ``Trainer.run``:
+    ``TRAIN_STEPS`` steps of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens,
+    float32, remat 'full', no checkpoint (parameters and moments are 22.7
+    GB).  Checks: finite losses and grad norms, the first loss within
+    ``TRAIN_LOSS0_ATOL`` of ln V + 0.02^2 d / 2, no kernel launched, and
+    one more step on step 0's batch from the initial state lowering that
+    batch's loss.  Prints the parameter count, the seconds of the first
+    step and of the steady ones, tokens/s, model FLOPs a step (6 N
+    tokens over the matmul parameters, the remat forward of the blocks,
+    attention's scores and products) and their share of the float32
+    peak, and the peak memory."""
+    from repro_torch.configs.registry import get
+    from repro_torch.data.pipeline import TokenPipelineConfig, token_batch
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.train import Trainer
+    from repro_torch.models import layers as L
+    from repro_torch.optim.adamw import AdamWConfig, init_adamw
+    cfg = get(LM_ARCH)
+    check(cfg.remat == 'full' and not cfg.tie_embeddings,
+          f'{cfg.name}: remat {cfg.remat}, tied {cfg.tie_embeddings}')
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, AdamWConfig(lr=1e-3, warmup_steps=2,
+                                  total_steps=TRAIN_STEPS), device='cuda')
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tr.params.parameters())
+    mm_blocks = sum(m.w.numel() for m in tr.params.blocks.modules()
+                    if isinstance(m, L.Linear))
+    mm_head = tr.params.lm_head.w.numel()
+    print(f'[train-full] {cfg.name}: {n_params:,} parameters '
+          f'({4 * n_params / 2**30:.1f} GiB; {mm_blocks + mm_head:,} in '
+          f'matmuls) drawn on the card from seed 0 in '
+          f'{time.perf_counter() - t0:.1f} s; {cfg.n_layers} layers, remat '
+          f'{cfg.remat}')
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    attn = 4 * 4 * TRAIN_BATCH * cfg.n_heads * TRAIN_SEQ ** 2 * cfg.hd * \
+        attention_layers(cfg)            # forward, 2x backward, remat
+    flops = 6 * (mm_blocks + mm_head) * tokens + 2 * mm_blocks * tokens + attn
+    init = [p.detach().to('cpu', copy=True)
+            for p in ST.train_params(tr.params).values()]
+    times, norms = [], []
+    step_fn = tr.step_fn
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step_fn(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        norms.append(out[2]['grad_norm'].item())
+        return out
+
+    tr.step_fn = timed
+    data = TokenPipelineConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()               # the training run starts here
+    losses = tr.run(data, TRAIN_STEPS, log_every=1)
+    launches = ops.launch_counts()     # ... and ends here
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steady = statistics.median(times[1:])
+    print(f'[train-full] {card}: {cfg.name} {TRAIN_STEPS} steps of '
+          f'{TRAIN_BATCH} x {TRAIN_SEQ} tokens, float32 (TF32 off): first '
+          f'step {times[0]:.3f} s, steady {steady:.3f} s (median of '
+          f'{len(times) - 1}: {[round(t, 3) for t in times[1:]]}) = '
+          f'{tokens / steady:.1f} tokens/s; model FLOPs a step '
+          f'{flops / 1e12:.2f} T (attention {attn / 1e12:.2f} T) = '
+          f'{flops / steady / 1e12:.1f} TFLOP/s, '
+          f'{100 * flops / steady / F32_OPS_PER_S:.1f}% of the float32 '
+          f'peak ({F32_OPS_PER_S / 1e12:.0f} TFLOP/s; bound '
+          f'{flops / F32_OPS_PER_S:.3f} s); peak memory {peak:.2f} GiB; '
+          f'losses {[round(x, 4) for x in losses]}, grad norms '
+          f'{[round(x, 4) for x in norms]}; launches {launches}')
+    check(len(losses) == TRAIN_STEPS
+          and all(math.isfinite(x) for x in losses + norms),
+          f'{cfg.name} training: losses {losses}, grad norms {norms}')
+    expected0 = math.log(cfg.vocab) + 0.02 ** 2 * cfg.d_model / 2
+    check(abs(losses[0] - expected0) <= TRAIN_LOSS0_ATOL,
+          f'{cfg.name}: first loss {losses[0]}, expected {expected0:.3f} '
+          f'+- {TRAIN_LOSS0_ATOL}')
+    check(sum(launches.values()) == 0,
+          f'{cfg.name}: training launched kernels {launches}')
+
+    # the direction check: the initial state again, one more step on
+    # step 0's batch, and that batch's loss after it
+    tr.step_fn, tr.opt = step_fn, None
+    params = list(ST.train_params(tr.params).values())
+    with torch.no_grad():
+        for p, h in zip(params, init):
+            p.copy_(h)
+    del init
+    batch0 = token_batch(data, 0, device='cuda')
+    ops.reset_launches()
+    _, _, m = step_fn(tr.params, init_adamw(params), batch0)
+    with torch.no_grad():
+        after = ST.train_loss(tr.params, cfg, batch0, torch.float32).item()
+    before = m['loss'].item()
+    extra = sum(ops.launch_counts().values())
+    print(f"[train-full] {cfg.name}: one more step on step 0's batch from "
+          f'the initial state: loss {before:.5f} (the run\'s first '
+          f'{losses[0]:.5f}, expected {expected0:.3f}) -> {after:.5f}; '
+          f'kernel launches {extra}')
+    check(abs(before - losses[0]) <= 1e-5 * losses[0],
+          f'{cfg.name}: the restored initial state gives loss {before}, '
+          f'the run\'s first step {losses[0]}')
+    check(after < before, f'{cfg.name}: a step on a batch did not lower '
+          f'its loss: {before} -> {after}')
+    check(extra == 0, f'{cfg.name}: the extra step launched {extra} kernels')
+    del tr, params, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import numpy
     import torch
@@ -1846,6 +2094,10 @@ def main() -> int:
           f'{dict(encdec_launches)}')
     launches.update(encdec_launches)
     lap('10 (encoder-decoder, VLM)')
+
+    # phase 11: training, every earlier model freed; it launches no kernel
+    phase_train(torch, ops, card)
+    lap('11 (training)')
 
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():

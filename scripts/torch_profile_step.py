@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Where the device time of one serving step goes, for the PyTorch/CUDA
-port on one GPU.
+"""Where the device time of one serving or training step goes, for the
+PyTorch/CUDA port on one GPU.
 
     python3 scripts/torch_profile_step.py [--slots 4] [--ticks 3]
     python3 scripts/torch_profile_step.py --features [--slots 4] [--ticks 3]
     python3 scripts/torch_profile_step.py --lm [--arch A ...] [--ticks 3]
+    python3 scripts/torch_profile_step.py --train
 
 Diffusion (the default): builds Stable Diffusion v1.4 at full width with
 random weights from seed 0 (no VAE: decode is not part of a denoise
@@ -22,7 +23,14 @@ one before, and profiles, at fp32 and w8a8, one prefill of
 ``serve_lm``'s traffic (batch 4, a 1000-token prompt, float32
 activations and cache; for Whisper also 1000 stub frames, and fp32 only,
 since its steps ignore ``quant``) and ``--ticks`` decode steps after
-it.  For each
+it.
+``--train``: InternLM2-1.8B at full width and depth with random weights
+from seed 0, ``build_train_step`` at float32 with remat 'full' on 4 x
+1024 tokens (the traffic of ``chip_smoke.py`` phase 11): one warm step,
+then one steady step profiled whole, then one split into its loss
+forward, its backward (which holds the remat forward) and the AdamW
+update, each ended by a synchronise, and last the blocks' forward alone
+under ``no_grad``: the work the backward's remat recomputes.  For each
 it prints, from ``torch.profiler``, the host wall time per step
 (synchronised), the summed kernel time, the device idle share (1 -
 kernel time / wall), the time per kernel family, and the heaviest
@@ -91,6 +99,88 @@ def profile_steps(torch, title: str, step, n: int) -> None:
         print(f'  {fam:24s} {ms:9.3f} ms  {ms / busy:6.1%}')
     for name, ms in by_name.most_common(6):
         print(f'    {ms:8.3f} ms  {name[:90]}')
+
+
+def profile_phases(torch, title: str, phases) -> None:
+    """Run ``phases`` ((name, fn) pairs) once under the profiler, each in
+    a ``record_function`` range ended by a synchronise, and print each
+    one's kernel time by family; a kernel belongs to the range its start
+    falls in."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for name, fn in phases:
+            with record_function(f'phase:{name}'):
+                fn()
+                torch.cuda.synchronize()
+    events = prof.events()
+    ranges = [(e.name[len('phase:'):], e.time_range.start, e.time_range.end)
+              for e in events if e.name.startswith('phase:')]
+    fams = {name: collections.Counter() for name, _, _ in ranges}
+    fams['(outside every range)'] = collections.Counter()
+    for e in events:             # the ranges show on the device as well
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or e.name.startswith('phase:'):
+            continue
+        where = next((n for n, lo, hi in ranges
+                      if lo <= e.time_range.start <= hi),
+                     '(outside every range)')
+        fams[where][family(e.name)] += e.time_range.elapsed_us() / 1e3
+    print(f'\n[{title}] kernel time by phase and family:')
+    for name, fam in fams.items():
+        total = sum(fam.values())
+        if not total:
+            continue
+        print(f'  {name:24s} {total:9.3f} ms: ' + ', '.join(
+            f'{f} {ms:.3f}' for f, ms in fam.most_common()))
+
+
+def profile_train(torch, card: str) -> None:
+    from repro_torch.configs.registry import get
+    from repro_torch.data.pipeline import TokenPipelineConfig, token_batch
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_adamw
+    cfg = get('internlm2-1.8b')
+    batch, seq = 4, 1024
+    lm = ST.init_params(torch.Generator(device='cuda').manual_seed(0), cfg,
+                        'cuda')
+    params = list(ST.train_params(lm).values())
+    oc = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=6)
+    state = {'opt': init_adamw(params), 'step': 0}
+    data = TokenPipelineConfig(cfg.vocab, seq, batch)
+    step = ST.build_train_step(cfg, oc, dtype=torch.float32)
+
+    def run_step():
+        b = token_batch(data, state['step'], device='cuda')
+        _, state['opt'], _ = step(lm, state['opt'], b)
+        state['step'] += 1
+
+    run_step()                                      # warm
+    title = (f'{cfg.name} train step {batch}x{seq}, float32, remat '
+             f'{cfg.remat}, {card}')
+    profile_steps(torch, title, run_step, 1)
+    b = token_batch(data, 9, device='cuda')
+
+    def fwd():
+        state['loss'] = ST.train_loss(lm, cfg, b, torch.float32)
+
+    def bwd():
+        state['grads'] = torch.autograd.grad(state.pop('loss'), params)
+
+    def opt():
+        _, state['opt'], _ = adamw_update(oc, state.pop('grads'),
+                                          state['opt'], params)
+
+    def blocks_forward():
+        with torch.no_grad():
+            T._apply_blocks(lm, cfg, L.embedding(lm.embed, b['tokens']))
+
+    profile_phases(torch, title, [
+        ('loss forward', fwd), ('backward (remat forward in it)', bwd),
+        ('adamw update', opt), ('blocks forward alone', blocks_forward)])
 
 
 def profile_lm(torch, card: str, arch: str, decode_steps: int) -> None:
@@ -169,6 +259,8 @@ def main() -> int:
                          '(default internlm2-1.8b)')
     ap.add_argument('--features', action='store_true',
                     help='profile noisy, DeepCache refresh and skip ticks')
+    ap.add_argument('--train', action='store_true',
+                    help='profile a full-width InternLM2-1.8B train step')
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -185,6 +277,9 @@ def main() -> int:
                            '--format=csv,noheader'], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(card)
+    if args.train:
+        profile_train(torch, card)
+        return 0
     if args.lm:
         for arch in args.arch or ['internlm2-1.8b']:
             profile_lm(torch, card, arch, args.ticks)

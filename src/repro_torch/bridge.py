@@ -12,6 +12,10 @@ key paths (``down.1.blocks.0.attn.wq.w``) are the port modules'
 
 Leaves may be numpy arrays or anything ``numpy.asarray`` accepts.  The
 load is strict: a missing or unexpected key raises.
+
+``load_jax_adamw_state`` carries a reference ``AdamWState`` (its ``m``
+and ``v`` trees mirror the parameters) into the port's, whose moments
+are lists in the module's parameter order.
 """
 from __future__ import annotations
 
@@ -22,7 +26,11 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from repro_torch.launch.steps import train_params
+from repro_torch.models import encdec as ED
 from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+from repro_torch.optim.adamw import AdamWState
 
 
 def _flatten(tree: Any, prefix: str, out: Dict[str, Any]) -> None:
@@ -58,7 +66,7 @@ def load_jax_lm_params(module: nn.Module, tree: Any) -> nn.Module:
     load as they are (only a 4-D leaf is a conv kernel).  Strict, as
     ``load_jax_params``; a leaf whose leading axis is not the module's
     unit count raises."""
-    return _load_stacked(module, tree, {'blocks': len(module.blocks)})
+    return _load_flat(module, _unstacked(tree, _stacks(module)))
 
 
 def load_jax_encdec_params(module: nn.Module, tree: Any) -> nn.Module:
@@ -66,15 +74,23 @@ def load_jax_encdec_params(module: nn.Module, tree: Any) -> nn.Module:
     ``enc_blocks`` (leading axis ``n_enc_layers``) and ``dec_blocks``
     (``n_layers``) are unstacked into ``enc_blocks.{i}...`` and
     ``dec_blocks.{i}...``.  Strict, as ``load_jax_lm_params``."""
-    return _load_stacked(module, tree,
-                         {'enc_blocks': len(module.enc_blocks),
-                          'dec_blocks': len(module.dec_blocks)})
+    return _load_flat(module, _unstacked(tree, _stacks(module)))
 
 
-def _load_stacked(module: nn.Module, tree: Any,
-                  stacks: Dict[str, int]) -> nn.Module:
-    """Load ``tree`` whose leaves under each key of ``stacks`` carry a
-    leading axis of that key's unit count, unstacked into
+def _stacks(module: nn.Module) -> Dict[str, int]:
+    """The module's stacked keys and their unit counts: ``blocks`` of an
+    LM, ``enc_blocks`` and ``dec_blocks`` of an encoder-decoder."""
+    if isinstance(module, T.LM):
+        return {'blocks': len(module.blocks)}
+    if isinstance(module, ED.EncDec):
+        return {'enc_blocks': len(module.enc_blocks),
+                'dec_blocks': len(module.dec_blocks)}
+    return {}
+
+
+def _unstacked(tree: Any, stacks: Dict[str, int]) -> Dict[str, Any]:
+    """``tree`` flattened, its leaves under each key of ``stacks``
+    (carrying a leading axis of that key's unit count) unstacked into
     ``{key}.{i}.{rest}``; a leading axis of another size raises."""
     flat: Dict[str, Any] = {}
     _flatten(tree, '', flat)
@@ -96,7 +112,43 @@ def _load_stacked(module: nn.Module, tree: Any,
             out[f'{head}.{i}.{rest}'] = (
                 types.SimpleNamespace(q=parts[0][i], scale=parts[1][i])
                 if _is_qtensor(leaf) else parts[0][i])
-    return _load_flat(module, out)
+    return out
+
+
+def _tensor(leaf: Any) -> torch.Tensor:
+    """A float leaf as a tensor in the port's layout (a 4-D conv kernel
+    transposed HWIO -> OIHW); numpy's bfloat16 (``ml_dtypes``) by its
+    bits."""
+    arr = np.array(leaf)
+    if arr.ndim == 4:
+        arr = arr.transpose(3, 2, 0, 1)
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype.name == 'bfloat16':
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def load_jax_adamw_state(module: nn.Module, state: Any) -> AdamWState:
+    """The reference ``AdamWState`` ``state`` (``step``, and ``m`` and
+    ``v`` trees of numpy arrays shaped as the parameters) as the port's,
+    for ``module``'s ``train_params`` order, on its device: ``m`` and
+    ``v`` map to parameter names as ``load_jax_lm_params`` and
+    ``load_jax_encdec_params`` map the parameters, stacked units
+    included.  Strict: a moment for a name the module lacks, or a missing
+    one, raises."""
+    params = train_params(module)
+    device = next(iter(params.values())).device
+    moments = []
+    for name, tree in (('m', state.m), ('v', state.v)):
+        flat = _unstacked(tree, _stacks(module))
+        if set(flat) != set(params):
+            raise ValueError(f'{name}: the moments\' names differ from the '
+                             'module\'s parameters: '
+                             f'{sorted(set(flat) ^ set(params))[:8]}')
+        moments.append([_tensor(flat[n]).to(device) for n in params])
+    step = torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                        device=device)
+    return AdamWState(step, *moments)
 
 
 def _load_flat(module: nn.Module, flat: Dict[str, Any]) -> nn.Module:
@@ -112,9 +164,6 @@ def _load_flat(module: nn.Module, flat: Dict[str, Any]) -> nn.Module:
             state[f'{key}.q'] = torch.from_numpy(np.array(leaf.q))
             state[f'{key}.scale'] = torch.from_numpy(np.array(leaf.scale))
             continue
-        arr = np.array(leaf)
-        if arr.ndim == 4:
-            arr = arr.transpose(3, 2, 0, 1)
-        state[key] = torch.from_numpy(np.ascontiguousarray(arr))
+        state[key] = _tensor(leaf)
     module.load_state_dict(state, strict=True)
     return module

@@ -1,22 +1,28 @@
-"""Prefill and decode step builders, port of the serving half of
-``repro/launch/steps.py`` (the train step waits for the training slice).
+"""Train, prefill and decode step builders, port of
+``repro/launch/steps.py``.
 
-The reference jits these steps; the port runs them eagerly.  Each step
-returns the greedy next token ``(B, 1)`` int32 and the serve state.  For
-the encoder-decoder family the steps ignore ``quant``, as the
+The reference jits these steps; the port runs them eagerly.  The train
+step is the loss under autograd, then AdamW (``optim/adamw.py``); it
+updates the model's parameters in place, where the reference's jit
+donates their buffers, and launches no kernel of ``kernels/``: the loss
+runs the float projections and ``gqa_core``, as the reference's, and
+neither package has a backward kernel.  Each serving step returns the
+greedy next token ``(B, 1)`` int32 and the serve state.  For the
+encoder-decoder family the serving steps ignore ``quant``, as the
 reference's do: Whisper under ``--w8a8`` runs float and launches no W8A8
 kernel.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.nn as nn
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as T
+from repro_torch.optim.adamw import AdamWConfig, adamw_update
 
 
 def init_params(generator: torch.Generator, cfg: ArchConfig,
@@ -26,6 +32,50 @@ def init_params(generator: torch.Generator, cfg: ArchConfig,
     if cfg.family == 'encdec':
         return ED.init_encdec(generator, cfg, device)
     return T.init_lm(generator, cfg, device)
+
+
+def train_params(model: nn.Module) -> Dict[str, nn.Parameter]:
+    """The model's float parameters by name, in registration order (the
+    order of ``AdamWState``'s moments), with gradients turned on.  A
+    quantized weight (``layers.QWeight``) holds buffers, not parameters,
+    so it never gets a gradient."""
+    params = {n: p for n, p in model.named_parameters()
+              if p.is_floating_point()}
+    for p in params.values():
+        p.requires_grad_(True)
+    return params
+
+
+def train_loss(model: nn.Module, cfg: ArchConfig,
+               batch: Dict[str, torch.Tensor],
+               dtype: torch.dtype = torch.bfloat16,
+               real_vocab: Optional[int] = None) -> torch.Tensor:
+    """The training loss of one batch: ``encdec_loss`` (which reads
+    ``frames``) for the encoder-decoder family, else ``lm_loss``."""
+    if cfg.family == 'encdec':
+        return ED.encdec_loss(model, cfg, batch['frames'], batch['tokens'],
+                              batch['labels'], dtype=dtype,
+                              real_vocab=real_vocab)
+    return T.lm_loss(model, cfg, batch['tokens'], batch['labels'],
+                     dtype=dtype, real_vocab=real_vocab)
+
+
+def build_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
+                     real_vocab: Optional[int] = None,
+                     dtype: torch.dtype = torch.bfloat16) -> Callable:
+    """(model, opt_state, batch) -> (model, opt_state, metrics): one
+    AdamW step on the batch's loss, the parameters updated in place;
+    ``metrics`` holds the ``loss`` and the ``grad_norm`` before clipping,
+    as 0-d tensors on the model's device."""
+
+    def train_step(model, opt_state, batch):
+        params = list(train_params(model).values())
+        loss = train_loss(model, cfg, batch, dtype, real_vocab)
+        grads = torch.autograd.grad(loss, params)
+        _, opt_state, gnorm = adamw_update(opt_cfg, grads, opt_state, params)
+        return model, opt_state, {'loss': loss.detach(), 'grad_norm': gnorm}
+
+    return train_step
 
 
 def init_serve_state(cfg: ArchConfig, batch: int, max_len: int,
@@ -82,3 +132,17 @@ def build_decode_step(cfg: ArchConfig, dtype: torch.dtype = torch.bfloat16,
         return logits.argmax(dim=-1).to(torch.int32), dict(state, cache=cache)
 
     return decode
+
+
+def make_batch_struct(cfg: ArchConfig, shape: ShapeConfig
+                      ) -> Dict[str, torch.Tensor]:
+    """Stand-ins for one training batch of ``shape``: tensors on the
+    ``meta`` device, with the reference's shapes and dtypes (``frames``
+    bfloat16 for the encoder-decoder)."""
+    B, S = shape.global_batch, shape.seq_len
+    batch = {'tokens': torch.empty((B, S), dtype=torch.int32, device='meta'),
+             'labels': torch.empty((B, S), dtype=torch.int32, device='meta')}
+    if cfg.family == 'encdec':
+        batch['frames'] = torch.empty((B, S, cfg.d_model),
+                                      dtype=torch.bfloat16, device='meta')
+    return batch

@@ -21,11 +21,17 @@ The reference stacks each block kind's params on a leading axis and
 scans them; the port keeps ``enc_blocks`` and ``dec_blocks`` as
 ``nn.ModuleList``s (``bridge.load_jax_encdec_params`` unstacks the
 reference's tree), and the decoder cache is a list with one ``{'k',
-'v'}`` per layer, updated in place.  ``encdec_loss`` waits for the
-training slice.
+'v'}`` per layer, updated in place.
+
+Training: ``encdec_loss`` is the LM's cross-entropy over
+``decode_train``'s logits.  Every encoder layer, and every decoder layer
+without a cache, runs under full remat (``layers.remat``) when grad is
+enabled and ``cfg.remat`` is not ``'none'``: the reference's encoder and
+decoder take plain ``jax.checkpoint`` for ``'dots'`` too.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -104,11 +110,20 @@ def encode(p: EncDec, cfg: ArchConfig, frames: torch.Tensor,
     """frames (B, T_enc, d) stub embeddings -> memory (B, T_enc, d)."""
     x = frames.to(dtype) + _sinusoid(frames.shape[1], cfg.d_model,
                                      frames.device).to(dtype)
-    for blk in p.enc_blocks:
-        a, _ = attention(blk.attn, cfg, L.layernorm(blk.attn_norm, x),
+
+    def body(blk, h):
+        a, _ = attention(blk.attn, cfg, L.layernorm(blk.attn_norm, h),
                          causal=False)
-        x = _ffn(blk, x + a)
+        return _ffn(blk, h + a)
+
+    for blk in p.enc_blocks:
+        x = L.remat(_remat(cfg), functools.partial(body, blk), x)
     return L.layernorm(p.enc_norm, x)
+
+
+def _remat(cfg: ArchConfig) -> str:
+    """The encoder's and decoder's policy: full unless ``'none'``."""
+    return 'none' if cfg.remat == 'none' else 'full'
 
 
 def _dec_blocks(p: EncDec, cfg: ArchConfig, x: torch.Tensor,
@@ -117,14 +132,21 @@ def _dec_blocks(p: EncDec, cfg: ArchConfig, x: torch.Tensor,
     """The decoder layers, the counterpart of the reference's
     ``_dec_scan``: causal self-attention (with the cache when given),
     cross-attention into ``memory``, the MLP."""
+
+    def body(blk, blk_cache, h, mem):
+        a, _ = attention(blk.attn, cfg, L.layernorm(blk.attn_norm, h),
+                         cache=blk_cache, cache_pos=cache_pos)
+        h = h + a
+        xa, _ = attention(blk.xattn, cfg, L.layernorm(blk.xattn_norm, h),
+                          memory=mem)
+        return _ffn(blk, h + xa)
+
     for i, blk in enumerate(p.dec_blocks):
-        a, _ = attention(blk.attn, cfg, L.layernorm(blk.attn_norm, x),
-                         cache=None if cache is None else cache[i],
-                         cache_pos=cache_pos)
-        x = x + a
-        xa, _ = attention(blk.xattn, cfg, L.layernorm(blk.xattn_norm, x),
-                          memory=memory)
-        x = _ffn(blk, x + xa)
+        if cache is None:
+            x = L.remat(_remat(cfg), functools.partial(body, blk, None), x,
+                        memory)
+        else:
+            x = body(blk, cache[i], x, memory)
     return x, cache
 
 
@@ -177,3 +199,12 @@ def encdec_decode(p: EncDec, cfg: ArchConfig, token: torch.Tensor, cache,
     x, cache = _dec_blocks(p, cfg, x, memory, cache=cache,
                            cache_pos=pos_scalar)
     return _readout(p, x), cache
+
+
+def encdec_loss(p: EncDec, cfg: ArchConfig, frames: torch.Tensor,
+                tokens: torch.Tensor, labels: torch.Tensor,
+                dtype: torch.dtype = torch.float32,
+                real_vocab: Optional[int] = None) -> torch.Tensor:
+    """Cross-entropy of ``decode_train``'s logits, as ``lm_loss``."""
+    return L.token_xent(decode_train(p, cfg, frames, tokens, dtype), labels,
+                        real_vocab)

@@ -3,7 +3,9 @@
 Functions on tensors: ``linear`` per precision policy, ``conv2d``,
 ``groupnorm``, ``swish`` and ``conv_transpose2d``; for the LMs
 ``embedding``, ``embedding_logits``, ``layernorm``, ``rmsnorm``, ``gelu``
-(the tanh approximation, as the reference's) and ``mlp``.  Layouts
+(the tanh approximation, as the reference's) and ``mlp``; for training
+``token_xent`` (the LM losses' cross-entropy) and ``remat`` (the
+reference's ``jax.checkpoint`` policies on a block).  Layouts
 follow the reference at these functions: NHWC / BSD activations and
 ``(in, out)`` linear weights.  Conv kernels are OIHW ``(out, in, kh,
 kw)``, the reference's HWIO kernel transposed, so cuDNN reads them
@@ -17,11 +19,13 @@ model's ``state_dict`` keys are the reference pytree's key paths.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Union
 
 import torch
 import torch.nn as nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.core import prng
 from repro_torch.core.precision import PrecisionPolicy, resolve
@@ -158,13 +162,59 @@ def pad_vocab(vocab: int, multiple: int) -> int:
     return -(-vocab // multiple) * multiple
 
 
+def token_xent(logits: torch.Tensor, labels: torch.Tensor,
+               real_vocab: Optional[int] = None) -> torch.Tensor:
+    """The LM losses' causal cross-entropy: logits (B, S, vocab) in
+    float32, the padded vocabulary rows (``real_vocab`` and up) set to
+    -1e30, the gold logit taken at ``max(labels, 0)``; the mean over the
+    labels that are not -1, its denominator at least 1."""
+    logits = logits.float()
+    vocab = logits.shape[-1]
+    if real_vocab is not None and real_vocab < vocab:
+        pad_mask = torch.arange(vocab, device=logits.device) < real_vocab
+        logits = torch.where(pad_mask, logits, -1e30)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.clamp_min(0)[..., None].long())[..., 0]
+    mask = (labels >= 0).float()
+    return ((logz - gold) * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``'dots'`` policy: keep what a matrix product computed (as
+    ``jax.checkpoint_policies.checkpoint_dots``), recompute the rest."""
+    aten = torch.ops.aten
+    return (ckpt.CheckpointPolicy.MUST_SAVE
+            if op in (aten.mm.default, aten.bmm.default, aten.addmm.default)
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(policy: str, fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass
+    (the reference's ``jax.checkpoint`` of a scanned block) when grad is
+    enabled: ``'full'`` keeps only the inputs, ``'dots'`` also the
+    outputs of ``mm``/``bmm``/``addmm``, ``'none'`` keeps everything.
+    The values are the same under every policy."""
+    if policy not in ('none', 'full', 'dots'):
+        raise ValueError(f"remat must be 'none', 'full' or 'dots', got "
+                         f'{policy!r}')
+    if policy == 'none' or not torch.is_grad_enabled():
+        return fn(*args)
+    kw = {}
+    if policy == 'dots':
+        kw['context_fn'] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+    return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
 # ---------------------------------------------------------------------------
 # parameter holders
 # ---------------------------------------------------------------------------
 
 def empty_param(shape, device, dtype=torch.float32) -> nn.Parameter:
-    """An uninitialised float32 parameter (no gradient): ``init_params``
-    or a checkpoint load fills it."""
+    """An uninitialised float32 parameter (no gradient: serving never
+    needs one, and a trainer turns it on with
+    ``launch.steps.train_params``): ``init_params`` or a checkpoint load
+    fills it."""
     return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
                         requires_grad=False)
 

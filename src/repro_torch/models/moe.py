@@ -13,7 +13,8 @@ all-experts fallback.
 
 The router and the experts stay float under ``quant``, as in the
 reference; only the shared experts' MLP runs on the W8A8 kernel.
-``router_aux_loss`` (training) comes with the training slice.
+``router_aux_loss`` is the reference's Switch-style load-balancing loss,
+for training; no loss of either package calls it.
 """
 from __future__ import annotations
 
@@ -139,3 +140,15 @@ def moe_ffn(p: MoE, cfg: ArchConfig, x: torch.Tensor,
     if p.shared is not None:
         y = y + L.mlp(p.shared, x, act=cfg.act, quant=quant)
     return y
+
+
+def router_aux_loss(p: MoE, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """Switch-style load-balancing auxiliary loss over x (B, S, d):
+    ``n_experts`` times the sum over experts of the share of tokens whose
+    top expert it is and its mean router probability."""
+    E = cfg.moe.n_experts
+    probs = torch.softmax(p.router(x.float()), dim=-1)      # (B, S, E)
+    top_e = probs.argmax(dim=-1)
+    frac_tokens = torch.nn.functional.one_hot(top_e, E).float().mean((0, 1))
+    frac_probs = probs.mean((0, 1))
+    return E * (frac_tokens * frac_probs).sum()

@@ -15,7 +15,12 @@ one ``{'sub{j}': ...}`` per unit (GQA ``k``/``v``, MLA ``c_kv``/``k_pe``,
 Mamba ``conv``/``state``), updated in place.  The VLM family (Qwen2-VL)
 is the dense blocks under M-RoPE; its vision frontend is a stub that
 hands ``lm_apply`` the ``inputs_embeds``.  The encoder-decoder family
-lives in ``models/encdec.py``; ``lm_loss`` waits for the training slice.
+lives in ``models/encdec.py``.
+
+Training: ``lm_loss`` is the reference's causal cross-entropy, and
+without a cache each unit runs under ``cfg.remat`` (``layers.remat``:
+``torch.utils.checkpoint`` where the reference wraps its scan body in
+``jax.checkpoint``) when grad is enabled; a unit with a cache never is.
 """
 from __future__ import annotations
 
@@ -157,13 +162,17 @@ def _readout(p: LM, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 
 def _apply_blocks(p: LM, cfg: ArchConfig, x: torch.Tensor, *, cache=None,
                   cache_pos=None, pos=None, quant=False):
-    new_cache: Optional[List[Any]] = None if cache is None else []
+    if cache is None:
+        for blk in p.blocks:
+            x = L.remat(cfg.remat, lambda h, blk=blk: apply_block(
+                blk, cfg, h, pos=pos, quant=quant)[0], x)
+        return x, None
+    new_cache: List[Any] = []
     for i, blk in enumerate(p.blocks):
         x, nc = apply_block(blk, cfg, x,
-                            cache=None if cache is None else cache[i],
-                            cache_pos=cache_pos, pos=pos, quant=quant)
-        if new_cache is not None:
-            new_cache.append(nc)
+                            cache=cache[i], cache_pos=cache_pos, pos=pos,
+                            quant=quant)
+        new_cache.append(nc)
     return x, new_cache
 
 
@@ -206,3 +215,14 @@ def lm_decode(p: LM, cfg: ArchConfig, token: torch.Tensor, cache,
     x, cache = _apply_blocks(p, cfg, x, cache=cache, cache_pos=pos_scalar,
                              quant=quant)
     return _readout(p, cfg, x), cache
+
+
+def lm_loss(p: LM, cfg: ArchConfig, tokens: Optional[torch.Tensor],
+            labels: torch.Tensor, *, dtype: torch.dtype = torch.float32,
+            real_vocab: Optional[int] = None,
+            inputs_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Causal cross-entropy of ``lm_apply``'s logits (``layers.token_xent``:
+    padded vocabulary rows masked, labels of -1 ignored)."""
+    logits = lm_apply(p, cfg, tokens, dtype=dtype,
+                      inputs_embeds=inputs_embeds)
+    return L.token_xent(logits, labels, real_vocab)

@@ -1,6 +1,7 @@
-"""Import hygiene of the port: ``repro_torch``, ``chip_smoke.py``, the
-port's profiling scripts and its serving example never import ``jax`` or
-anything of the JAX package ``repro``, and
+"""Import hygiene of the port: ``repro_torch`` (its training modules
+included), ``chip_smoke.py``, the port's profiling scripts, its serving
+example and its jax-free test files never import ``jax`` or anything of
+the JAX package ``repro``, and
 ``chip_smoke.py`` refuses to run where it has no GPU or no repository."""
 import ast
 import os
@@ -15,7 +16,10 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / 'src' / 'repro_torch'
 SOURCES = sorted(str(p.relative_to(ROOT)) for p in PORT.rglob('*.py')) + [
     'chip_smoke.py', 'scripts/torch_profile_step.py',
-    'scripts/torch_lm_gap.py', 'examples/serve_diffusion_torch.py']
+    'scripts/torch_lm_gap.py', 'examples/serve_diffusion_torch.py',
+    # the test files that run on the GPU machine, which has no JAX
+    'tests/test_torch_kernels_gpu.py', 'tests/test_torch_serving_gpu.py',
+    'tests/test_torch_train_gpu.py', 'tests/test_torch_checkpoint.py']
 
 # the serving features' modules (threefry generator, photonic model,
 # DeepCache): the hygiene tests below must reach each of them
@@ -52,6 +56,21 @@ LM_FAMILY_MODULES = [
     'src/repro_torch/bridge.py',
 ]
 
+# the training path's modules: the optimizer, the data pipeline, the
+# checkpoint manager, the fault-tolerance runtime and the trainer
+TRAINING_MODULES = [
+    'src/repro_torch/optim/__init__.py',
+    'src/repro_torch/optim/adamw.py',
+    'src/repro_torch/optim/accumulation.py',
+    'src/repro_torch/data/__init__.py',
+    'src/repro_torch/data/pipeline.py',
+    'src/repro_torch/checkpoint/__init__.py',
+    'src/repro_torch/checkpoint/manager.py',
+    'src/repro_torch/distributed/__init__.py',
+    'src/repro_torch/distributed/fault_tolerance.py',
+    'src/repro_torch/launch/train.py',
+]
+
 
 def _imported_modules(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
@@ -70,7 +89,8 @@ def test_source_never_imports_jax_or_the_reference(source):
 
 
 @pytest.mark.parametrize('source', SERVING_FEATURE_MODULES
-                         + SERVING_CLI_MODULES + LM_FAMILY_MODULES)
+                         + SERVING_CLI_MODULES + LM_FAMILY_MODULES
+                         + TRAINING_MODULES)
 def test_serving_feature_modules_are_covered(source):
     assert source in SOURCES
     mods = {m.split('.')[0] for m in _imported_modules(ROOT / source)}
