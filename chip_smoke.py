@@ -13,8 +13,9 @@ Phases, each printing its own lines:
    library's SASS and the TF32 ones (``HGMMA`` ... ``TF32``) in the flash
    library's with ``cuobjdump``, and fail if either has none;
 3. kernels: find every shape the Stable Diffusion v1.4 UNet hands each
-   kernel at batch = the engine's slot count (one w8a8 forward with and
-   one without context), then at each shape hold the kernel against its
+   kernel at batch = the engine's slot count and at batch = a phase 12
+   shard's ``MESH_SPD`` slots (one w8a8 forward with and one without
+   context each), then at each shape hold the kernel against its
    plain PyTorch version (w8a8 exactly; GroupNorm+swish within
    ``GN_ATOL``) and time kernel, plain version and PyTorch yardstick
    (``time_ms``; for our two kernels also the device time alone, replayed
@@ -105,6 +106,31 @@ Phases, each printing its own lines:
    per conditional w8a8 one (64 unconditional).  Last, the walls of one
    w8a8 evaluation, one 512-px decode, the two in turn, and the decode
    on a second stream beside the evaluation: what overlap can hide;
+12. mesh (run right after phase 8, on its pipeline): the slot-sharded
+   engine, SD v1.4 + VAE 512 at w8a8, unguided over the shared context,
+   over two logical shards on cuda:0 with ``MESH_SPD`` slots each (the
+   counterpart of the reference's simulated devices: every line of the
+   sharded path on the card, no scaling measured).  (i) 8 requests at 10
+   steps, all at t=0, against an unsharded 4-slot engine: images within
+   ``W8A8_ATOL``, UNet evaluations == shards x ticks and launches == the
+   evaluations x the plan (45 and 128), every kernel shape the run
+   gives among those phase 3 checked at its batch, decodes overlapped;
+   req/s, p50, peak memory (one parameter replica for both shards) and
+   the median wall of one full tick of each (of 7); (ii) the same 8
+   through a 2 -> 1 resize after two ticks (2 slots, 2 parked) and a
+   1 -> 2 grow serving 4 more: every image within ``W8A8_ATOL`` of
+   (i)'s, 2 resizes; (iii) 3 w8a8 requests and a w8a8+noise one on
+   slot 3 (shard 1, whose noise is
+   rows 2-3 of the 4-slot draw), sharded against unsharded within
+   ``W8A8_ATOL``, at the paper's noise model and at one thirty times as
+   loud (``LOUD_NOISE``, ``LOUD_STEPS``); at each level also with the
+   fault of shards drawing their noise at their own shape, whose gap is
+   printed and, at 30x, must exceed ``WRONG_DRAW_MARGIN`` x
+   ``W8A8_ATOL`` (the paper's level alone cannot tell the two apart);
+   (iv) ``serve_diffusion(devices=1)``, 4 requests of a
+   Poisson trace on a mesh of one, all completed; with two or more
+   cards, (i) again over cuda:0 and cuda:1 (skipped, and said so, on
+   one);
 9. LM families: every earlier model freed (the allocated memory printed
    first), Granite-MoE-1B-A400M, DeepSeek-V2-Lite-16B and Mamba2-2.7B in
    turn at full width and depth, each with phase 7's check (w8a8: within
@@ -146,13 +172,15 @@ Before the last line it prints one JSON object ``{"kernels": [...]}``.
 For ``fused_gn_swish`` and ``w8a8_matmul``, ``ms`` / ``plain_ms`` /
 ``library_ms`` / ``bound_ms`` are the times of one UNet evaluation's
 worth of that kernel's calls at batch 4 (the per-shape median times of
-phase 3, weighted by launches per evaluation); for ``flash_attention``
-they are one prefill's worth (24 launches at the path shape), with
-``passes`` (TF32 products per float32 product) and ``bound_f32_ms``
-(the float32 CUDA-core bound) beside them.
+phase 3, weighted by launches per evaluation), ``max_abs_err`` the
+largest over the batch-4 and the batch-``MESH_SPD`` shapes; for
+``flash_attention`` they are one prefill's worth (24 launches at the
+path shape), with ``passes`` (TF32 products per float32 product) and
+``bound_f32_ms`` (the float32 CUDA-core bound) beside them.
 ``launches`` is each kernel's count over the runs of phases 5, 5b, 7, 8,
-9 and 10, each read from counters set to 0 just before its run (phase
-11's runs launch none, which it checks).
+12, 9 and 10 (phase 12's sharded runs only: a tick over two shards
+launches each kernel's plan twice), each read from counters set to 0
+just before its run (phase 11's runs launch none, which it checks).
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, and the run then exits non-zero with no result; so does a run
 without CUDA or without the repository beside this file.
@@ -235,6 +263,18 @@ FEATURES_SEEDS = (20, 21, 22)
 SERVE_REQUESTS, SERVE_RATE = 8, 4.0
 OVERLOAD, OVERLOAD_REQUESTS, OVERLOAD_STEPS = 5.0, 16, 4
 SERVE_OUT = ROOT / 'build' / 'serve-smoke'
+# phase 12, the slot-sharded engine: two logical shards on cuda:0 with 2
+# slots each (SLOTS in all); the CLI's mesh of one replays 4 requests
+MESH_SPD = 2
+MESH_CLI_REQUESTS = 4
+# phase 12 (iii)'s negative control: the paper's noise model thirty times
+# as loud (crosstalk 30 dB up), as the CPU engine tests use it, at 2
+# steps; shards drawing their noise at their own shape must miss
+# W8A8_ATOL by WRONG_DRAW_MARGIN there
+LOUD_NOISE = dict(sigma_w_lsb=9.0, sigma_x_lsb=6.0, sigma_pd_lsb=15.0,
+                  crosstalk_db_per_channel=2.0)
+LOUD_STEPS = 2
+WRONG_DRAW_MARGIN = 5
 
 LM_ARCH = 'internlm2-1.8b'
 LM_BATCH, LM_PROMPT, LM_TOKENS = 4, 1000, 32
@@ -470,26 +510,66 @@ def w8a8_row(torch, gen, M: int, K: int, N: int):
 
 
 def phase_kernels(torch, ops, pipe, context):
-    """Phase 3: every path shape, kernel vs plain, with times."""
+    """Phase 3: every path shape, kernel vs plain, with times: the UNet's
+    at batch ``SLOTS`` (an unsharded engine) and at batch ``MESH_SPD``
+    (a shard of phase 12).  Returns the batch-``SLOTS`` summary (its
+    ``max_abs_err`` over both batches), the launches per evaluation and
+    the shapes checked, {rows: {kernel: set}}."""
     import ctypes
 
-    import torch.nn.functional as F
     from repro_torch.kernels import build
-    from repro_torch.kernels import fused_gn_swish as gnk
     occupancy = build.load('fused_gn_swish').fused_gn_swish_max_clusters
     occupancy.argtypes = [ctypes.c_int] * 3
     occupancy.restype = ctypes.c_int
     cfg = pipe.unet_cfg
-    x = torch.randn((SLOTS, cfg.img_size, cfg.img_size, cfg.in_ch),
-                    device='cuda')
-    t = torch.full((SLOTS,), 500, device='cuda')
-    with torch.no_grad():
-        cond = record_shapes(ops, lambda: pipe.unet(x, t, context, 'w8a8'))
-        unc = record_shapes(ops, lambda: pipe.unet(x, t, None, 'w8a8'))
+
+    def shapes_at(rows):
+        x = torch.randn((rows, cfg.img_size, cfg.img_size, cfg.in_ch),
+                        device='cuda')
+        t = torch.full((rows,), 500, device='cuda')
+        with torch.no_grad():
+            cond = record_shapes(ops, lambda: pipe.unet(
+                x, t, context[:rows], 'w8a8'))
+            unc = record_shapes(ops, lambda: pipe.unet(x, t, None, 'w8a8'))
+        return cond, unc
+
+    cond, unc = shapes_at(SLOTS)
     per_eval = {k: sum(v.values()) for k, v in cond.items()}
     per_eval['w8a8_matmul_uncond'] = sum(unc['w8a8_matmul'].values())
     print(f'[kernels] launches per UNet evaluation: {per_eval}')
     gen = torch.Generator(device='cuda').manual_seed(0)
+    summary = sd_kernel_rows(torch, gen, occupancy, cond,
+                             f'per UNet evaluation at batch {SLOTS}')
+    # a shard's evaluation: the same plan at MESH_SPD rows; shapes the
+    # unconditional pass alone gives are checked too (per_eval 0 there)
+    s_cond, s_unc = shapes_at(MESH_SPD)
+    check({k: sum(v.values()) for k, v in s_cond.items()}
+          == {k: per_eval[k] for k in s_cond}
+          and sum(s_unc['w8a8_matmul'].values())
+          == per_eval['w8a8_matmul_uncond'],
+          f'batch {MESH_SPD}: launches per evaluation differ from batch '
+          f'{SLOTS}\'s')
+    shard = sd_kernel_rows(
+        torch, gen, occupancy,
+        {k: collections.Counter({**dict.fromkeys(s_unc[k], 0), **s_cond[k]})
+         for k in s_cond},
+        f'per shard evaluation at batch {MESH_SPD} (phase 12)')
+    checked = {SLOTS: {}, MESH_SPD: {}}
+    for name in summary:
+        summary[name]['max_abs_err'] = max(summary[name]['max_abs_err'],
+                                           shard[name]['max_abs_err'])
+        checked[SLOTS][name] = set(cond[name])
+        checked[MESH_SPD][name] = set(s_cond[name]) | set(s_unc[name])
+    return summary, per_eval, checked
+
+
+def sd_kernel_rows(torch, gen, occupancy, shapes, label):
+    """Phase 3's rows for the UNet's kernels at ``shapes`` ({kernel:
+    Counter(shape) of launches per evaluation}): each shape held against
+    the plain version and timed beside its bound; returns per kernel the
+    launch-weighted totals, the largest error and what bounds them."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import fused_gn_swish as gnk
     summary = {}
     for name in ('fused_gn_swish', 'w8a8_matmul'):
         tot = {'ms': 0.0, 'device_ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0,
@@ -498,7 +578,7 @@ def phase_kernels(torch, ops, pipe, context):
                                  if name == 'w8a8_matmul' else ('copy_ms',),
                                  0.0))
         errs, bound_by = [], set()
-        for shape, count in sorted(cond[name].items()):
+        for shape, count in sorted(shapes[name].items()):
             if name == 'fused_gn_swish':
                 N, H, W, C, g = shape
                 xg = torch.randn((N, H, W, C), device='cuda', generator=gen)
@@ -564,9 +644,8 @@ def phase_kernels(torch, ops, pipe, context):
         summary[name] = dict(tot, max_abs_err=max(errs),
                              bound_by='bytes' if bound_by == {'bytes'}
                              else 'operations')
-        print(f'[kernels] {name}: per UNet evaluation at batch {SLOTS}: '
-              + json.dumps(summary[name]))
-    return summary, per_eval
+        print(f'[kernels] {name}: {label}: ' + json.dumps(summary[name]))
+    return summary
 
 
 def flash_ops(BH: int, S: int, T: int, d: int, causal: bool) -> int:
@@ -1096,9 +1175,9 @@ def phase_full_features(torch, numpy, ops, pipe, context, card, normal_ms):
     calls = []
 
     def recorded(fn, refresh_of):
-        def wrapped(pol, guided, *args):
+        def wrapped(sh, pol, guided, *args):
             before = ops.launch_counts()
-            out = fn(pol, guided, *args)
+            out = fn(sh, pol, guided, *args)
             after = ops.launch_counts()
             calls.append((pol.name, guided, refresh_of(args),
                           {k: after[k] - before[k] for k in after}))
@@ -1185,12 +1264,12 @@ def phase_full_features(torch, numpy, ops, pipe, context, card, normal_ms):
     print(f'[features] {card}: PSNR (dB) vs the fp32 full-step probe by '
           f'kind: {dict(by_kind)}')
 
-    # the walls of one step of each kind over all 4 slots, unguided: a
-    # noisy full step against a w8a8 one, a DeepCache refresh against a
-    # skip; and the share of the noisy step its noise draws take
-    x_shape = engine.x.shape
-    engine.x = torch.randn(x_shape, device='cuda')
-    engine.x0 = torch.randn(x_shape, device='cuda')
+    # the walls of one step of each kind over all 4 slots (the one shard),
+    # unguided: a noisy full step against a w8a8 one, a DeepCache refresh
+    # against a skip; and the share of the noisy step its noise draws take
+    sh = engine._shards[0]
+    sh.x = torch.randn(sh.x.shape, device='cuda')
+    sh.x0 = torch.randn(sh.x.shape, device='cuda')
     ts = engine._trajectory(STEPS)
     t_d = torch.full((SLOTS,), int(ts[1]), device='cuda')
     tp_d = torch.full((SLOTS,), int(ts[2]), device='cuda')
@@ -1202,30 +1281,30 @@ def phase_full_features(torch, numpy, ops, pipe, context, card, normal_ms):
     t0_ = int(ts[1])
     walls = {
         'w8a8 full': time_wall(torch, lambda: engine._step(
-            pw, False, t_d, tp_d, m_d, g_d, None, t0_)),
+            sh, pw, False, t_d, tp_d, m_d, g_d, None, t0_)),
         'w8a8+noise full': time_wall(torch, lambda: engine._step(
-            pn, False, t_d, tp_d, m_d, g_d, key, t0_)),
+            sh, pn, False, t_d, tp_d, m_d, g_d, key, t0_)),
         'w8a8 refresh': time_wall(torch, lambda: engine._cached_step(
-            pw, False, True, t_d, tp_d, m_d, g_d, None)),
+            sh, pw, False, True, t_d, tp_d, m_d, g_d, None)),
         'w8a8 skip': time_wall(torch, lambda: engine._cached_step(
-            pw, False, False, t_d, tp_d, m_d, g_d, None)),
+            sh, pw, False, False, t_d, tp_d, m_d, g_d, None)),
         'w8a8+noise skip': time_wall(torch, lambda: engine._cached_step(
-            pn, False, False, t_d, tp_d, m_d, g_d, key)),
+            sh, pn, False, False, t_d, tp_d, m_d, g_d, key)),
         'fp32 full': time_wall(torch, lambda: engine._step(
-            engine._policy_for('fp32'), False, t_d, tp_d, m_d, g_d, None,
-            t0_)),
+            sh, engine._policy_for('fp32'), False, t_d, tp_d, m_d, g_d,
+            None, t0_)),
     }
     draws = []
     normal = prng.normal
 
-    def rec(k, shape, *, device):
+    def rec(k, shape, *, device, offset=0):
         draws.append(tuple(shape))
-        return normal(k, shape, device=device)
+        return normal(k, shape, device=device, offset=offset)
 
     prng.normal = rec
     try:
         with torch.no_grad():
-            engine._step(pn, False, t_d, tp_d, m_d, g_d, key, t0_)
+            engine._step(sh, pn, False, t_d, tp_d, m_d, g_d, key, t0_)
     finally:
         prng.normal = normal
     n_draw = sum(math.prod(s) for s in draws)
@@ -1589,7 +1668,7 @@ def lm_full(torch, numpy, ops, card, cfg, tag, w8a8_rtol=None):
     return launches
 
 
-def phase_serve(torch, numpy, ops, card):
+def phase_serve(torch, numpy, ops, card, pipe):
     """Phase 8: the serving CLI's path, ``serve_diffusion`` on SD v1.4 +
     VAE 512 at full width (4 slots, 10 steps, w8a8, no quality probe):
     (i) 8 requests at 4.0 req/s, (ii) the same trace with decode overlap,
@@ -1597,10 +1676,10 @@ def phase_serve(torch, numpy, ops, card):
     Prometheus text written under ``build/serve-smoke``, (iv) 5x the
     measured capacity, 16 requests at 4 steps.  Checks counts only:
     requests completed, images, decodes overlapped, the trace reconciled,
-    the overload tallies, kernel launches per UNet evaluation."""
+    the overload tallies, kernel launches per UNet evaluation.  ``pipe``:
+    ``serve_diffusion``'s SD v1.4 pipeline, shared with phase 12."""
     from repro_torch.launch import serve as tserve
     from repro_torch.obs import read_jsonl
-    pipe = tserve._diffusion_pipe('sd-v1.4', None, 'cuda')
     SERVE_OUT.mkdir(parents=True, exist_ok=True)
     files = {k: str(SERVE_OUT / f'serve.{k}') for k in ('json', 'jsonl',
                                                          'prom')}
@@ -1706,8 +1785,6 @@ def phase_serve(torch, numpy, ops, card):
           f'{int(s.get("shed_deadline_evict", 0))}), queue peaked at '
           f'{int(s["max_queue_depth"])} <= {2 * SLOTS}')
     decode_overlap_walls(torch, pipe, card)
-    del pipe
-    torch.cuda.empty_cache()
     return launches
 
 
@@ -1747,6 +1824,268 @@ def decode_overlap_walls(torch, pipe, card):
     print(f'[serve] {card}: walls (ms, median of 3) of a w8a8 evaluation '
           'over 4 slots and a 512-px decode: '
           + json.dumps({k: round(v, 3) for k, v in walls.items()}))
+
+
+def mesh_engine(pipe, context, devices=None):
+    """Phase 12's engine: w8a8 unguided over the shared context, no
+    quality probe; sharded over ``devices`` at ``MESH_SPD`` slots each,
+    else one device with ``SLOTS`` slots."""
+    from repro_torch.launch.mesh import serving_mesh
+    from repro_torch.serving import ContinuousBatchingEngine
+    if devices is None:
+        return ContinuousBatchingEngine(pipe, slots=SLOTS, context=context,
+                                        quality_probe=0)
+    return ContinuousBatchingEngine(
+        pipe, mesh=serving_mesh(devices=devices), slots_per_device=MESH_SPD,
+        context=context, quality_probe=0)
+
+
+def mesh_requests(n, start=0, steps=STEPS, precision='w8a8'):
+    from repro_torch.serving import GenerationRequest
+    return [GenerationRequest(start + i, seed=300 + start + i, steps=steps,
+                              precision=precision) for i in range(n)]
+
+
+def mesh_run(torch, ops, engine, reqs, evals):
+    """Serve ``reqs`` (all at t=0) with the counters set to 0 just before
+    and read just after; returns results, launches, wall and peak GiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    evals.clear()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    results = serve(engine, reqs)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    return results, launches, wall, torch.cuda.max_memory_allocated() / 2**30
+
+
+def mesh_tick_ms(torch, engine):
+    """Median wall (ms, ``time_wall`` of 7) of one tick with every slot
+    busy with a w8a8 request, no drain among the ticks timed (1 + 8 of
+    the requests' ``STEPS``)."""
+    for r in mesh_requests(engine.slots, start=100):
+        check(engine.submit(r), 'tick-timing request rejected')
+    engine.tick()                          # admission and the first step
+    ms = time_wall(torch, engine.tick, reps=7)
+    engine.run_until_idle()
+    return ms
+
+
+def check_mesh_images(numpy, what, got, want, tol):
+    check(sorted(got) == sorted(want),
+          f'{what}: completed {sorted(got)} of {sorted(want)}')
+    err = 0.0
+    for rid, r in got.items():
+        check(r.image.shape == (512, 512, 3) and numpy.isfinite(r.image).all(),
+              f'{what} request {rid}: image not a finite 512x512x3')
+        err = max(err, float(numpy.abs(r.image - want[rid].image).max()))
+    print(f'[mesh] {what}: {len(got)} images, max abs err {err:.3e} '
+          f'(tol {tol})')
+    check(err <= tol, f'{what}: images off by {err} > {tol}')
+
+
+def phase_mesh(torch, numpy, ops, card, pipe, per_eval, checked):
+    """Phase 12: the slot-sharded engine on SD v1.4 + VAE 512 at full
+    width (``pipe``, phase 8's), w8a8, unguided over the shared context,
+    over two logical shards on cuda:0 with ``MESH_SPD`` slots each:
+    (i) 8 requests at 10 steps against an unsharded 4-slot engine, with
+    the launches held to shards x ticks x the plan; (ii) the same 8
+    through a 2 -> 1 resize after two ticks and a 1 -> 2 grow serving 4
+    more; (iii) a w8a8+noise request on shard 1; (iv)
+    ``serve_diffusion(devices=1)`` on a Poisson trace; with two or more
+    cards, (i) again over cuda:0 and cuda:1.  Returns the launches."""
+    from repro_torch.launch import serve as tserve
+    cfg = pipe.unet_cfg
+    gen = torch.Generator().manual_seed(1)
+    context = torch.randn((SLOTS, 77, cfg.context_dim),
+                          generator=gen)[:1].repeat(SLOTS, 1, 1).cuda()
+    evals = collections.Counter()
+
+    def count_eval(module, args, kwargs):
+        x, t, ctx, pol = (list(args) + [None, None])[:4]
+        evals[(str(getattr(pol, 'name', pol)), ctx is None)] += 1
+
+    hook = pipe.unet.register_forward_pre_hook(count_eval, with_kwargs=True)
+    total = collections.Counter()
+    two = ['cuda:0', 'cuda:0']
+    try:
+        # (i) sharded against unsharded, and the plan's launches
+        runs = {}
+        for name, devices in (('unsharded', None), ('sharded', two)):
+            eng = mesh_engine(pipe, context, devices)
+            eng.warmup(precisions=('w8a8',))
+            out = []
+            seen = record_shapes(ops, lambda: out.extend(mesh_run(
+                torch, ops, eng, mesh_requests(8), evals)))
+            res, launches, wall, peak = out
+            shards = 1 if eng.mesh is None else eng.mesh.size
+            # every shape a shard's evaluation gave a kernel was held
+            # against the plain version in phase 3
+            want_shapes = checked[eng.slots // shards]
+            for k, shapes in seen.items():
+                check(set(shapes) <= want_shapes[k],
+                      f'(i) {name}: {k} at shapes phase 3 did not check: '
+                      f'{sorted(set(shapes) - want_shapes[k])}')
+            print(f'[mesh] (i) {name}: kernel shapes of the run, each held '
+                  f'to its plain version in phase 3: '
+                  + json.dumps({k: sorted(map(list, v))
+                                for k, v in seen.items()}))
+            snap = eng.metrics.snapshot()
+            n_evals = sum(evals.values())
+            want = {'fused_gn_swish': per_eval['fused_gn_swish'] * n_evals,
+                    'w8a8_matmul': per_eval['w8a8_matmul'] * n_evals,
+                    'flash_attention': 0}
+            print(f'[mesh] (i) {name}: {shards} shard(s) x '
+                  f'{eng.slots // shards} slots, {snap.ticks} ticks, '
+                  f'{n_evals} conditional w8a8 evaluations; launches '
+                  f'{launches}, plan {want}')
+            check(set(evals) == {('w8a8', False)}
+                  and n_evals == shards * snap.ticks > 0,
+                  f'(i) {name}: evaluations {dict(evals)} against {shards} '
+                  f'shards x {snap.ticks} ticks')
+            check(launches == want, f'(i) {name}: launches {launches} != '
+                  f'the plan {want}')
+            if eng.mesh is not None:
+                check(snap.overlapped_decodes > 0 and snap.devices == 2,
+                      '(i) sharded: no decode overlapped')
+                total.update(launches)
+            tick_ms = mesh_tick_ms(torch, eng)
+            runs[name] = res
+            print(f'[mesh] (i) {card}: {name}: wall {wall:.3f} s, '
+                  f'{snap.requests_per_s:.4f} req/s, p50 '
+                  f'{snap.p50_latency_s:.3f} s, peak memory {peak:.2f} GiB, '
+                  f'one tick over {eng.slots} full slots {tick_ms:.1f} ms')
+            del eng
+        check_mesh_images(numpy, '(i) sharded vs unsharded', runs['sharded'],
+                          runs['unsharded'], W8A8_ATOL)
+
+        # (ii) shrink 2 -> 1 after two ticks, then grow 1 -> 2
+        eng = mesh_engine(pipe, context, two)
+        eng.warmup(precisions=('w8a8',))
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        for r in mesh_requests(8):
+            check(eng.submit(r), f'request {r.request_id} rejected')
+        done = eng.tick() + eng.tick()
+        done += eng.elastic_resize(devices=['cuda:0'],
+                                   precisions=('w8a8',))
+        parked = len(eng._parked)
+        check(eng.slots == MESH_SPD and parked == SLOTS - MESH_SPD,
+              f'(ii) shrink: {eng.slots} slots, {parked} parked')
+        done += eng.run_until_idle()
+        shrunk_s = time.perf_counter() - t0
+        eng.elastic_resize(devices=two, precisions=('w8a8',))
+        grown = serve(eng, mesh_requests(4, start=8))
+        launches = ops.launch_counts()
+        total.update(launches)
+        snap = eng.metrics.snapshot()
+        print(f'[mesh] (ii) {card}: 8 requests through 2 -> 1 after two '
+              f'ticks ({parked} parked) in {shrunk_s:.3f} s, then 1 -> 2 '
+              f'and 4 more: {snap.completed} completed, resizes '
+              f'{eng.metrics.resizes}, launches {launches}')
+        check(eng.slots == SLOTS and snap.resizes == 2 and snap.devices == 2
+              and sorted(grown) == list(range(8, 12)),
+              f'(ii): slots {eng.slots}, resizes {snap.resizes}, grown '
+              f'{sorted(grown)}')
+        check(launches['w8a8_matmul'] > 0 and launches['fused_gn_swish'] > 0,
+              '(ii): the resized engine launched no path kernel')
+        check_mesh_images(numpy, '(ii) resized vs (i)',
+                          {r.request_id: r for r in done}, runs['sharded'],
+                          W8A8_ATOL)
+        del eng
+
+        # (iii) a noisy request on shard 1 (slot 3), beside 3 w8a8 ones,
+        # at the paper's noise model and at one thirty times as loud;
+        # each level also with the fault of shards drawing their noise at
+        # their own shape (the noisy matmul without first_sample: shard 1
+        # draws the rows of shard 0), off the main path, which the loud
+        # level's check must catch by a margin
+        from repro_torch.core import precision
+        from repro_torch.core.photonic import noise
+        right, paper = noise.noisy_w8a8_matmul, precision.NoiseModel
+
+        def own_shape(*args, first_sample=0, **kw):
+            return right(*args, **kw)
+
+        def loud():
+            return paper(**LOUD_NOISE)
+
+        for level, model, steps in (('paper', paper, 4),
+                                    ('30x', loud, LOUD_STEPS)):
+            reqs = (mesh_requests(3, start=40, steps=steps)
+                    + mesh_requests(1, start=43, steps=steps,
+                                    precision='w8a8+noise'))
+            noisy = {}
+            for name, devices, draw in (('unsharded', None, right),
+                                        ('sharded', two, right),
+                                        ('sharded, own-shape draws', two,
+                                         own_shape)):
+                precision.NoiseModel, noise.noisy_w8a8_matmul = model, draw
+                try:
+                    eng = mesh_engine(pipe, context, devices)
+                    res, launches, wall, _ = mesh_run(torch, ops, eng, reqs,
+                                                      evals)
+                finally:
+                    precision.NoiseModel = paper
+                    noise.noisy_w8a8_matmul = right
+                if level == 'paper' and name == 'sharded':
+                    total.update(launches)
+                noisy[name] = res
+                print(f'[mesh] (iii) {card}: {level} noise, {name}: 3 w8a8 '
+                      f'+ 1 w8a8+noise requests at {steps} steps in '
+                      f'{wall:.3f} s; launches {launches}')
+                del eng
+            check_mesh_images(numpy, f'(iii) {level} noise, noisy on shard '
+                              '1, sharded vs unsharded', noisy['sharded'],
+                              noisy['unsharded'], W8A8_ATOL)
+            wrong = max(float(numpy.abs(
+                r.image - noisy['unsharded'][rid].image).max())
+                for rid, r in noisy['sharded, own-shape draws'].items())
+            print(f'[mesh] (iii) {level} noise, own-shape draws (the '
+                  f'fault) vs unsharded: max abs err {wrong:.3e} (tol '
+                  f'{W8A8_ATOL})')
+            if level == '30x':
+                check(wrong > WRONG_DRAW_MARGIN * W8A8_ATOL,
+                      f'(iii) own-shape draws off by only {wrong}: the '
+                      'check cannot tell them from the right draws')
+
+        # (iv) the CLI's function over a mesh of one
+        ops.reset_launches()
+        results, s = tserve.serve_diffusion(
+            None, STEPS, MESH_CLI_REQUESTS, SERVE_RATE, SLOTS,
+            precision='w8a8', quality_probe=0, devices=1, pipe=pipe)
+        launches = ops.launch_counts()
+        total.update(launches)
+        print(f'[mesh] (iv) {card}: serve_diffusion(devices=1): '
+              f'{int(s["completed"])} of {MESH_CLI_REQUESTS} at {SERVE_RATE} '
+              f'req/s, {s["requests_per_s"]:.4f} req/s, p50 '
+              f'{s["p50_latency_ms"] / 1e3:.3f} s, devices '
+              f'{int(s["devices"])}; launches {launches}')
+        check(len(results) == s['completed'] == MESH_CLI_REQUESTS
+              and s['devices'] == 1, '(iv): requests lost on a mesh of one')
+
+        # (i) over two real cards, where there are two
+        if torch.cuda.device_count() >= 2:
+            eng = mesh_engine(pipe, context, ['cuda:0', 'cuda:1'])
+            eng.warmup(precisions=('w8a8',))
+            res, launches, wall, _ = mesh_run(torch, ops, eng,
+                                              mesh_requests(8), evals)
+            total.update(launches)
+            print(f'[mesh] (i) over cuda:0 and cuda:1: wall {wall:.3f} s, '
+                  f'launches {launches}')
+            check(launches['w8a8_matmul'] == per_eval['w8a8_matmul']
+                  * sum(evals.values()) > 0, '(i) two cards: launches')
+            check_mesh_images(numpy, '(i) two cards vs one', res,
+                              runs['unsharded'], W8A8_ATOL)
+            del eng
+        else:
+            print('[mesh] (i) over two real cards: skipped, '
+                  f'{torch.cuda.device_count()} card visible')
+    finally:
+        hook.remove()
+    return total
 
 
 def phase_train(torch, ops, card):
@@ -2022,7 +2361,7 @@ def main() -> int:
 
     # phase 3: kernels at the paths' shapes
     lm_cfg = get(LM_ARCH)
-    summary, per_eval = phase_kernels(torch, ops, pipe, context)
+    summary, per_eval, checked = phase_kernels(torch, ops, pipe, context)
     check(per_eval['fused_gn_swish'] == 45 and per_eval['w8a8_matmul'] == 128,
           f'SD v1.4 launches per evaluation {per_eval}, expected 45 / 128')
     # InternLM2 and Granite against one cache row past the prompt,
@@ -2072,10 +2411,21 @@ def main() -> int:
     lap('7 (LM full width)')
 
     # phase 8: the serving CLI's path at full width
-    serve_launches = phase_serve(torch, numpy, ops, card)
+    from repro_torch.launch import serve as tserve
+    serve_pipe = tserve._diffusion_pipe('sd-v1.4', None, 'cuda')
+    serve_launches = phase_serve(torch, numpy, ops, card, serve_pipe)
     print(f'[serve] serving CLI path launches: {dict(serve_launches)}')
     launches.update(serve_launches)
     lap('8 (serving CLI)')
+
+    # phase 12: the slot-sharded engine on phase 8's pipeline
+    mesh_launches = phase_mesh(torch, numpy, ops, card, serve_pipe, per_eval,
+                               checked)
+    print(f'[mesh] sharded serving path launches: {dict(mesh_launches)}')
+    launches.update(mesh_launches)
+    del serve_pipe
+    torch.cuda.empty_cache()
+    lap('12 (slot-sharded serving)')
 
     # phase 9: the MoE, MLA and SSM families at full width, every earlier
     # model freed

@@ -48,19 +48,30 @@ def crosstalk_sigma_lsb(n_channels: int, model: NoiseModel) -> float:
 
 def noisy_w8a8_matmul(key: prng.Key, x: torch.Tensor, w,
                       model: NoiseModel = NoiseModel(),
-                      n_channels: int = 36) -> torch.Tensor:
+                      n_channels: int = 36,
+                      first_sample: int = 0) -> torch.Tensor:
     """W8A8 matmul with analog perturbations.  Serves both the robustness
     sweeps and the engine's ``w8a8+noise`` policy; ``w`` may be a float
     weight ``(K, N)`` or a pre-quantized QTensor.  The same key gives the
     same draw: ``split(key, 3)`` keys the activation noise (shape of the
     quantized rows), the weight noise (shape of the int8 weight) and the
-    output noise (shape of the product, scaled by sqrt(K)), in that order."""
+    output noise (shape of the product, scaled by sqrt(K)), in that order.
+
+    ``first_sample``: x's leading axis holds samples ``first_sample ...
+    first_sample + x.shape[0] - 1`` of a larger batch, and the activation
+    and output noise are those samples' rows of the draws over that batch
+    (a shard of the slot axis draws what the unsharded batch draws for
+    it; the partitionable threefry makes a row's draw independent of the
+    rows after it).  The weight noise does not depend on it."""
     kx, kw, kp = prng.split(key, 3)
     dev = x.device
     xq = quantize(x.reshape(-1, x.shape[-1]), axis=(1,))
     wq = w if isinstance(w, QTensor) else quantize_per_channel(w)
-    xn = prng.normal(kx, xq.q.shape, device=dev).mul_(model.sigma_x_lsb).add_(
-        xq.q.float())
+    # every sample holds the same number of rows, batch-major
+    row0 = first_sample * (xq.q.shape[0] // x.shape[0])
+    K, N = xq.q.shape[1], wq.q.shape[-1]
+    xn = prng.normal(kx, xq.q.shape, device=dev, offset=row0 * K).mul_(
+        model.sigma_x_lsb).add_(xq.q.float())
     wn = prng.normal(kw, wq.q.shape, device=dev).mul_(model.sigma_w_lsb).add_(
         wq.q.float())
     acc = torch.matmul(xn, wn)
@@ -68,7 +79,8 @@ def noisy_w8a8_matmul(key: prng.Key, x: torch.Tensor, w,
     sigma_out = float(np.sqrt(np.float32(
         model.sigma_pd_lsb ** 2 + crosstalk_sigma_lsb(n_channels, model) ** 2)))
     sqrt_k = float(np.sqrt(np.float32(x.shape[-1])))
-    acc.add_(prng.normal(kp, acc.shape, device=dev).mul_(sigma_out).mul_(sqrt_k))
+    acc.add_(prng.normal(kp, acc.shape, device=dev, offset=row0 * N).mul_(
+        sigma_out).mul_(sqrt_k))
     out = acc.mul_(xq.scale).mul_(wq.scale.reshape(1, -1))
     return out.reshape(x.shape[:-1] + (wq.q.shape[-1],))
 

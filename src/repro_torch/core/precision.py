@@ -97,11 +97,15 @@ class NoiseKeyStream:
     site gets ``fold_in(base, i)`` with a counter that advances per call,
     so every layer draws independent noise while the whole network stays
     deterministic under a fixed base key.  A stream built from ``None``
-    dispenses ``None`` (no noise), so callers never branch."""
+    dispenses ``None`` (no noise), so callers never branch.
+    ``first_sample``: the batch's first sample in the larger batch the
+    noise is drawn over (a shard of the engine's slot axis), which every
+    noisy matmul of the stream takes."""
 
-    def __init__(self, base_key: Optional[prng.Key]):
+    def __init__(self, base_key: Optional[prng.Key], first_sample: int = 0):
         self._base = base_key
         self._i = 0
+        self.first_sample = first_sample
 
     def next(self) -> Optional[prng.Key]:
         if self._base is None:
@@ -112,7 +116,8 @@ class NoiseKeyStream:
 
 
 def stream_for(policy: PrecisionPolicy,
-               noise_key: Optional[prng.Key] = None) -> NoiseKeyStream:
+               noise_key: Optional[prng.Key] = None,
+               first_sample: int = 0) -> NoiseKeyStream:
     """The noise-key stream an apply function dispenses from: the
     caller's key when given, else the policy's seed anchor, else an inert
     stream for noise-free policies."""
@@ -120,4 +125,4 @@ def stream_for(policy: PrecisionPolicy,
         return NoiseKeyStream(None)
     if noise_key is None:
         noise_key = prng.PRNGKey(policy.noise_seed)
-    return NoiseKeyStream(noise_key)
+    return NoiseKeyStream(noise_key, first_sample)

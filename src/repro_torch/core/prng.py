@@ -118,24 +118,28 @@ def _shape(shape: Union[int, Sequence[int]]) -> Tuple[int, ...]:
         tuple(int(s) for s in shape)
 
 
-def random_bits(key: Key, shape, *, device) -> torch.Tensor:
+def random_bits(key: Key, shape, *, device, offset: int = 0) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)`` as an int64 tensor of
     32-bit words on ``device`` (required: a draw the size of a weight
-    belongs where the weight lies)."""
+    belongs where the weight lies).  ``offset``: the row-major index of
+    the first element in a larger draw; element i's bits depend only on
+    (key, i), so this is elements ``[offset, offset + prod(shape))`` of
+    any draw that holds them (a shard's rows of a global draw)."""
     shape = _shape(shape)
     n = math.prod(shape)
-    idx = torch.arange(n, dtype=torch.int64, device=device)
+    idx = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
     y1, y2 = threefry2x32(key, idx >> 32, idx.bitwise_and_(MASK))
     return y1.bitwise_xor_(y2).reshape(shape)
 
 
 def uniform(key: Key, shape, minval: float = 0.0, maxval: float = 1.0,
-            *, device) -> torch.Tensor:
+            *, device, offset: int = 0) -> torch.Tensor:
     """``jax.random.uniform`` in float32: the top 23 bits as the mantissa
     of a float in [1, 2), minus 1, scaled to [minval, maxval) with one
     rounding, as XLA fuses the multiply-add (emulated in float64 unless
-    the span is a power of two, where the product is exact)."""
-    bits = random_bits(key, shape, device=device)
+    the span is a power of two, where the product is exact).
+    ``offset`` as for ``random_bits``."""
+    bits = random_bits(key, shape, device=device, offset=offset)
     f = bits.bitwise_right_shift_(9).bitwise_or_(0x3F800000).to(
         torch.int32).view(torch.float32) - 1.0
     lo = float(np.float32(minval))
@@ -170,7 +174,9 @@ _LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 _SQRT2 = float(np.float32(np.sqrt(2.0)))
 
 
-def normal(key: Key, shape, *, device) -> torch.Tensor:
+def normal(key: Key, shape, *, device, offset: int = 0) -> torch.Tensor:
     """``jax.random.normal`` in float32: ``sqrt(2) * erfinv(u)`` with u
-    uniform on [nextafter(-1, 0), 1)."""
-    return erfinv(uniform(key, shape, _LO, 1.0, device=device)).mul_(_SQRT2)
+    uniform on [nextafter(-1, 0), 1).  ``offset`` as for
+    ``random_bits``."""
+    return erfinv(uniform(key, shape, _LO, 1.0, device=device,
+                          offset=offset)).mul_(_SQRT2)

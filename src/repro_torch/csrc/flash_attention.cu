@@ -641,12 +641,14 @@ struct Args {
 template <int D, typename TQ, bool KV_BF16>
 int launch(const Args& a, cudaStream_t stream) {
   auto kern = flash_attention_tf32_kernel<D, TQ, KV_BF16>;
-  static bool configured = false;
-  if (!configured) {
+  static bool configured[kMaxDevices] = {};
+  const int dev = device_slot();
+  if (dev < 0) return (int)cudaErrorInvalidDevice;
+  if (!configured[dev]) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Geo<D>::SMEM);
     if (e != cudaSuccess) return (int)e;
-    configured = true;
+    configured[dev] = true;
   }
   const long long* st = a.st;
   CUtensorMap tk, tv;

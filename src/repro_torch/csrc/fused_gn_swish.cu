@@ -45,6 +45,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "hopper.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -193,14 +195,17 @@ fused_gn_swish_kernel(const float* __restrict__ x, const float* __restrict__ sca
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// Raise the kernel's dynamic shared-memory limit to `smem` if it is lower.
+// Raise the kernel's dynamic shared-memory limit on the current device to
+// `smem` if it is lower (0 in the table: the default 48 KiB).
 template <bool RESIDENT, int VEC>
 cudaError_t allow_smem(size_t smem) {
-  static size_t allowed = 48 * 1024;
-  if (smem <= allowed) return cudaSuccess;
+  static size_t allowed[kMaxDevices] = {};
+  const int dev = device_slot();
+  if (dev < 0) return cudaErrorInvalidDevice;
+  if (smem <= (allowed[dev] ? allowed[dev] : 48 * 1024)) return cudaSuccess;
   cudaError_t e = cudaFuncSetAttribute(fused_gn_swish_kernel<RESIDENT, VEC>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e == cudaSuccess) allowed = smem;
+  if (e == cudaSuccess) allowed[dev] = smem;
   return e;
 }
 

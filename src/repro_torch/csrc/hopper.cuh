@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's CUDA kernels:
 // mbarriers with a wait that traps instead of hanging, TMA tile loads,
-// wgmma shared-memory descriptors, and the driver's tensor-map encoder
-// reached through the runtime, so that no library links -lcuda.
+// wgmma shared-memory descriptors, cuTensorMapEncodeTiled reached
+// through the runtime, so that no library links -lcuda, and the current
+// device's slot in a launcher's per-device attribute table.
 #pragma once
 
 #include <cuda.h>
@@ -115,6 +116,17 @@ EncodeTiled encode_fn() {
       fn = reinterpret_cast<EncodeTiled>(p);
   }
   return fn;
+}
+
+// cudaFuncSetAttribute sets a kernel's attribute for the current device
+// only, so a launcher keeps what it has set in a table indexed by device.
+constexpr int kMaxDevices = 64;
+
+// The current device's index into such a table, or -1.
+inline int device_slot() {
+  int d = -1;
+  if (cudaGetDevice(&d) != cudaSuccess || d < 0 || d >= kMaxDevices) return -1;
+  return d;
 }
 
 }  // namespace

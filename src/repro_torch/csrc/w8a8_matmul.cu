@@ -309,13 +309,15 @@ template <int BN, bool SWAP>
 int launch(const int8_t* xq, const float* xs, const int8_t* wt, const float* ws,
            float* out, int* scratch, int M, int N, int kp, int split,
            cudaStream_t stream) {
-  static bool configured = false;
-  if (!configured) {
+  static bool configured[kMaxDevices] = {};
+  const int dev = device_slot();
+  if (dev < 0) return (int)cudaErrorInvalidDevice;
+  if (!configured[dev]) {
     cudaError_t e = cudaFuncSetAttribute(w8a8_wgmma_kernel<BN, SWAP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          smem_bytes<BN>());
     if (e != cudaSuccess) return (int)e;
-    configured = true;
+    configured[dev] = true;
   }
   const int rows_p = SWAP ? N : M, rows_q = SWAP ? M : N;
   const int kboxes = (kp + BK - 1) / BK;

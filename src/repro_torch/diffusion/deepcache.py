@@ -22,7 +22,8 @@ from repro_torch.models.unet import UNet, UNetConfig
 def unet_apply_cached(unet: UNet, cfg: UNetConfig, x: torch.Tensor,
                       t: torch.Tensor, cache: Optional[torch.Tensor],
                       refresh: bool, context=None, policy=None, *,
-                      noise_key: Optional[prng.Key] = None
+                      noise_key: Optional[prng.Key] = None,
+                      first_sample: int = 0
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """UNet forward with DeepCache.
 
@@ -33,12 +34,13 @@ def unet_apply_cached(unet: UNet, cfg: UNetConfig, x: torch.Tensor,
 
     A noisy policy dispenses its keys from ``stream_for(policy,
     noise_key)`` directly (no timestep folded in), in the order the
-    blocks run, as the reference does.  The passes are ``UNet``'s own
+    blocks run, as the reference does; ``first_sample`` as for
+    ``UNet.forward``.  The passes are ``UNet``'s own
     parts (``shallow_in``, ``deep``, ``shallow_out``); ``cfg`` is
     ``unet.cfg``, in the reference's signature.
     """
     pol = resolve(policy)
-    keys = stream_for(pol, noise_key)
+    keys = stream_for(pol, noise_key, first_sample)
     h, skips, t_emb = unet.shallow_in(x, t, context, pol, keys)
     if refresh or cache is None:
         cache = unet.deep(h, t_emb, context, pol, keys)

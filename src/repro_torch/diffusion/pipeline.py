@@ -108,7 +108,7 @@ class DiffusionPipeline:
             policy=dataclasses.replace(pol, calibration='prequant'))
 
     def _eps_fn(self, context=None, guidance: float = 0.0, policy=None,
-                noise_key: Optional[prng.Key] = None):
+                noise_key: Optional[prng.Key] = None, first_sample: int = 0):
         """Noise-prediction closure at a given precision, with
         classifier-free guidance when ``guidance > 0`` and a context is
         given: ``e_unc + guidance * (e_cond - e_unc)``.  Under a noisy
@@ -116,7 +116,10 @@ class DiffusionPipeline:
         branch)`` (branch 0 conditional, 1 unconditional), ``base`` being
         ``noise_key`` or the policy's seed anchor.  ``eps(x, t, t_first)``
         takes ``t[0]`` from a caller that holds it on the host, which
-        spares the device sync of reading it."""
+        spares the device sync of reading it; a shard of the engine's slot
+        axis passes global slot 0's.  ``first_sample``: x's first sample
+        in that larger batch, whose draws the evaluation takes
+        (``UNet.forward``)."""
         pol = resolve(policy) if policy is not None else self.policy
         base = None
         if pol.noisy:
@@ -132,9 +135,10 @@ class DiffusionPipeline:
             t0 = None
             if base is not None:
                 t0 = int(t.reshape(-1)[0]) if t_first is None else t_first
-            e = self.unet(x, t, context, pol, keyed(t0, 0))
+            e = self.unet(x, t, context, pol, keyed(t0, 0), first_sample)
             if guidance > 0.0 and context is not None:
-                e_unc = self.unet(x, t, None, pol, keyed(t0, 1))
+                e_unc = self.unet(x, t, None, pol, keyed(t0, 1),
+                                  first_sample)
                 e = e_unc + guidance * (e - e_unc)
             return e
         return eps

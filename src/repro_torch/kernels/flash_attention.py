@@ -115,13 +115,16 @@ def _launch(q4, k4, v4, out4, causal: bool, scale: Optional[float]):
         strides += _strides(name, t)
     if scale is None:
         scale = d ** -0.5
-    err = _kernel_fn()(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
-                       out4.data_ptr(), B, H, G, S, T, d,
-                       ctypes.cast((ctypes.c_longlong * 12)(*strides),
-                                   ctypes.c_void_p),
-                       int(q4.dtype == torch.bfloat16),
-                       int(k4.dtype == torch.bfloat16), scale, int(causal),
-                       torch.cuda.current_stream(q4.device).cuda_stream)
+    fn = _kernel_fn()
+    # the launch goes to the current device: make it the operands'
+    with torch.cuda.device(q4.device):
+        err = fn(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
+                 out4.data_ptr(), B, H, G, S, T, d,
+                 ctypes.cast((ctypes.c_longlong * 12)(*strides),
+                             ctypes.c_void_p),
+                 int(q4.dtype == torch.bfloat16),
+                 int(k4.dtype == torch.bfloat16), scale, int(causal),
+                 torch.cuda.current_stream(q4.device).cuda_stream)
     if err:
         raise RuntimeError(f'flash_attention launch failed: CUDA error {err}')
     launches += 1
@@ -130,9 +133,9 @@ def _launch(q4, k4, v4, out4, causal: bool, scale: Optional[float]):
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            *, causal: bool = False,
                            scale: Optional[float] = None) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream.  Same contract as
-    ``flash_attention_plain``; every tensor contiguous on one CUDA
-    device, d in ``HEAD_DIMS``, dtypes one of ``DTYPES``."""
+    """Launch the CUDA kernel on the current stream of q's device.  Same
+    contract as ``flash_attention_plain``; every tensor contiguous on one
+    CUDA device, d in ``HEAD_DIMS``, dtypes one of ``DTYPES``."""
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape \
             or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
         raise ValueError(f'bad shapes q {tuple(q.shape)}, k {tuple(k.shape)}'

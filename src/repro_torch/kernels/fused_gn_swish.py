@@ -78,7 +78,8 @@ def _kernel_fn():
 def fused_gn_swish_kernel(x: torch.Tensor, scale: torch.Tensor,
                           bias: torch.Tensor, groups: int,
                           eps: float = 1e-5) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream: one cluster of
+    """Launch the CUDA kernel on the current stream of x's device (made
+    the current device for the launch): one cluster of
     ``gn_plan(H*W, C/groups).cluster`` blocks per (n, group).  x (N, H, W,
     C) contiguous float32 on a CUDA device, scale/bias (C,) float32 on the
     same device, C % groups == 0."""
@@ -100,10 +101,12 @@ def fused_gn_swish_kernel(x: torch.Tensor, scale: torch.Tensor,
                              f'got {tuple(t.shape)}')
     plan = gn_plan(H * W, C // groups)
     out = torch.empty_like(x)
-    err = _kernel_fn()(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                       out.data_ptr(), N, H * W, C, groups, plan.cluster,
-                       plan.chunk, int(plan.resident), eps,
-                       torch._C._cuda_getCurrentRawStream(dev))
+    fn = _kernel_fn()
+    with torch.cuda.device(dev):     # the launch goes to the current device
+        err = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                 out.data_ptr(), N, H * W, C, groups, plan.cluster,
+                 plan.chunk, int(plan.resident), eps,
+                 torch._C._cuda_getCurrentRawStream(dev))
     if err:
         raise RuntimeError(f'fused_gn_swish launch failed: CUDA error {err}')
     launches += 1

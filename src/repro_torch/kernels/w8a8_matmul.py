@@ -151,7 +151,8 @@ def _kernel_fn():
 def w8a8_matmul_kernel(xq: torch.Tensor, x_scale: torch.Tensor,
                        wt: torch.Tensor,
                        w_scale: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream: xq (M, Kp) int8,
+    """Launch the CUDA kernel on the current stream of the operands'
+    device (made the current device for the launch): xq (M, Kp) int8,
     x_scale (M, 1) f32, wt (N, Kp) int8 -- the K-major weight -- and
     w_scale (1, N) f32, every tensor contiguous on one CUDA device, Kp a
     multiple of ``K_ALIGN`` (``pad_k``, ``kmajor_weight``).  Equals
@@ -184,10 +185,12 @@ def w8a8_matmul_kernel(xq: torch.Tensor, x_scale: torch.Tensor,
     out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
     scratch = (torch.empty((M, N), dtype=torch.int32, device=xq.device)
                if plan.split > 1 else out)
-    err = _kernel_fn()(xq.data_ptr(), x_scale.data_ptr(), wt.data_ptr(),
-                       w_scale.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                       M, N, Kp, int(plan.swap), plan.bn, plan.split,
-                       torch._C._cuda_getCurrentRawStream(dev))
+    fn = _kernel_fn()
+    with torch.cuda.device(dev):     # the launch goes to the current device
+        err = fn(xq.data_ptr(), x_scale.data_ptr(), wt.data_ptr(),
+                 w_scale.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                 M, N, Kp, int(plan.swap), plan.bn, plan.split,
+                 torch._C._cuda_getCurrentRawStream(dev))
     if err:
         raise RuntimeError(f'w8a8_matmul launch failed: CUDA error {err}')
     launches += 1

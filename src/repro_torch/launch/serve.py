@@ -11,6 +11,9 @@ batching diffusion generation (``serve_diffusion``).
         [--overlap-decode on] [--overload 5] [--trace t.json --prom t.prom]
     python -m repro_torch.launch.serve --diffusion --device cpu \\
         --requests 6 --rate 8 --slots 3 --steps 4 --img 16
+    python -m repro_torch.launch.serve --diffusion --device cpu \\
+        --devices 8 --slots-per-device 1 --requests 16 --rate 8 \\
+        --steps 6 --resize-to 4 --resize-after 4
 
 It runs on the GPU unless ``--device cpu`` is given, and raises when the
 GPU it is asked for is missing.
@@ -33,10 +36,19 @@ write the Chrome trace and the JSONL event log after reconciling the
 trace with the metrics; ``--prom`` writes the Prometheus exposition;
 ``--report-every S`` prints a snapshot line every S seconds.
 
-The reference's mesh flags (``--devices``, ``--slots-per-device``,
-``--resize-to``, ``--resize-after``: ROADMAP Queue 1 item 6b) and its
-compile-cache flags (``--cache-dir``, ``--cache-max-mb``: JAX's cache,
-which ROADMAP lists under "Also not ported") are refused.
+Sharded serving: ``--devices N`` shards the engine's slot axis over a
+1-D mesh of the first N cards (with ``--device cpu``, N logical CPU
+shards), ``--slots-per-device`` fixes the per-device budget, and decode
+overlap defaults on; it logs the ``[mesh]`` layout, warns on
+``[mesh]`` when the step monitor flags a straggler, and ends with a
+``[mesh] stragglers:`` line.  ``--resize-to M`` resizes the mesh to M
+devices mid-replay after ``--resize-after K`` completions (default half
+the requests), keeping the results the resize flushes, and logs the
+``[elastic]`` lines; parked requests re-enter and complete.
+
+The reference's compile-cache flags (``--cache-dir``,
+``--cache-max-mb``: JAX's cache, which ROADMAP lists under "Also not
+ported") are refused.
 """
 from __future__ import annotations
 
@@ -54,6 +66,7 @@ from repro_torch.configs.diffusion import SD_V1_4, VAE_512
 from repro_torch.configs.registry import get, smoke_config
 from repro_torch.diffusion.pipeline import DiffusionPipeline, resolve_device
 from repro_torch.launch import steps as ST
+from repro_torch.launch.mesh import serving_mesh
 from repro_torch.models.unet import UNetConfig
 from repro_torch.obs import (SnapshotReporter, Tracer, render_exposition,
                              write_chrome_trace, write_jsonl)
@@ -67,13 +80,11 @@ log_sched = logging.getLogger('sched')
 log_energy = logging.getLogger('energy')
 log_frontier = logging.getLogger('frontier')
 log_obs = logging.getLogger('obs')
+log_mesh = logging.getLogger('mesh')
+log_elastic = logging.getLogger('elastic')
 
-#: the reference's flags that one card cannot serve, and why
+#: the reference's flags that the port does not serve, and why
 _REFUSED = {
-    '--devices': 'slot-axis sharding is ROADMAP Queue 1 item 6b',
-    '--slots-per-device': 'slot-axis sharding is ROADMAP Queue 1 item 6b',
-    '--resize-to': 'elastic resize is ROADMAP Queue 1 item 6b',
-    '--resize-after': 'elastic resize is ROADMAP Queue 1 item 6b',
     '--cache-dir': "JAX's compile cache is not ported (ROADMAP \"Also not "
                    "ported\": serving/compile_cache.py); kernels/build.py "
                    "caches the kernels",
@@ -183,7 +194,9 @@ def serve_diffusion(img: Optional[int], steps: int, n_requests: int,
                     cache_interval: int = 1, exit_tol=None,
                     exit_patience: int = 2, queue_depth=None,
                     shed_policy: str = 'reject-newest',
-                    overload: float = 0.0, overlap_decode: bool = False,
+                    overload: float = 0.0, devices=None,
+                    slots_per_device=None, overlap_decode=None,
+                    resize_to=None, resize_after=None,
                     trace_path=None, log_json_path=None, prom_path=None,
                     report_every=None, model: str = 'toy', device='cuda',
                     pipe=None):
@@ -198,7 +211,12 @@ def serve_diffusion(img: Optional[int], steps: int, n_requests: int,
     ``overload > 0`` ignores ``rate_hz`` and offers ``overload`` times the
     measured capacity against a bounded queue (``queue_depth``, default
     ``2 * slots``) with deadline-aware shedding and a default SLO of 3x
-    the zero-queue service time.  ``trace_path`` / ``log_json_path``
+    the zero-queue service time.  ``devices`` shards the slot axis over
+    a 1-D mesh of the first N devices of ``device``'s kind (on the CPU, N
+    logical shards); ``resize_to`` / ``resize_after`` resize it mid-replay
+    after K completions (default half the requests), the results the
+    resize flushes kept.  ``overlap_decode`` None: on exactly when
+    sharded.  ``trace_path`` / ``log_json_path``
     trace the replay and write the Chrome trace / JSONL log, reconciled
     with the metrics first; ``prom_path`` writes the final Prometheus
     exposition; ``report_every`` logs a snapshot every that many seconds.
@@ -221,30 +239,51 @@ def serve_diffusion(img: Optional[int], steps: int, n_requests: int,
     if queue_depth is not None or shed_policy != 'reject-newest':
         queue = AdmissionQueue(max_depth=queue_depth,
                                shed_policy=shed_policy)
+    mesh = None
+    if devices is not None:
+        mesh = serving_mesh(n_devices=devices, device=pipe.device.type)
+    elif resize_to is not None:
+        raise ValueError('resize_to resizes a mesh: pass devices too')
     tracer = Tracer() if (trace_path or log_json_path) else None
     reporter = None
     if report_every is not None and report_every > 0:
         reporter = SnapshotReporter(interval_s=report_every,
                                     emit=log_obs.info)
+
+    def _on_straggler(report):
+        log_mesh.warning('straggler flagged: hosts %s (median %.1fms, '
+                         'threshold %.1fms) - %s', list(report.slow_hosts),
+                         report.median_s * 1e3, report.threshold_s * 1e3,
+                         report.recommendation)
+
     engine = ContinuousBatchingEngine(pipe, slots=slots, context=context,
                                       queue=queue,
                                       quality_probe=quality_probe,
                                       cache_interval=cache_interval,
                                       exit_tol=exit_tol,
                                       exit_patience=exit_patience,
+                                      mesh=mesh,
+                                      slots_per_device=slots_per_device,
                                       overlap_decode=overlap_decode,
-                                      tracer=tracer, reporter=reporter)
+                                      tracer=tracer, reporter=reporter,
+                                      on_straggler=_on_straggler
+                                      if mesh is not None else None)
     dev = pipe.device
     log_serve.info('%s (%s) on %s%s, overlap_decode=%s', pipe.unet_cfg.name,
                    'VAE decoder' if pipe.vae is not None else 'pixel space',
                    dev, f' ({torch.cuda.get_device_name(dev)})'
                    if dev.type == 'cuda' else '', engine.overlap_decode)
+    if mesh is not None:
+        log_mesh.info('slot axis sharded over %d devices (%s): %d slots '
+                      '(%d/device), overlap_decode=%s', devices,
+                      ', '.join(str(d) for d in mesh.devices), engine.slots,
+                      engine.slots // devices, engine.overlap_decode)
     log_serve.info('warmup (kernels, policy=%s)...', precision)
     warmup_s = engine.warmup(precisions=(precision,))
     log_coldstart.info('warmup %.2fs (no persistent cache)', warmup_s)
     if overload > 0:
         tick_s = engine.measure_tick_s(steps=steps)
-        capacity_rps = slots / (steps * tick_s)
+        capacity_rps = engine.slots / (steps * tick_s)
         rate_hz = overload * capacity_rps
         if slo_ms is None:
             # 3x the zero-queue service time: generous for an uncontended
@@ -254,7 +293,8 @@ def serve_diffusion(img: Optional[int], steps: int, n_requests: int,
             'measured capacity %.2f req/s (%.1f ms/tick) -> offering '
             '%.2f req/s = %.1fx, queue_depth=%s, slo=%.0fms, '
             'shed_policy=%s', capacity_rps, tick_s * 1e3, rate_hz,
-            overload_factor(rate_hz, tick_s, steps, slots), queue_depth,
+            overload_factor(rate_hz, tick_s, steps, engine.slots),
+            queue_depth,
             slo_ms, shed_policy)
     trace = poisson_trace(n_requests, rate_hz, steps, seed, slo_ms=slo_ms,
                           precision=precision)
@@ -267,9 +307,30 @@ def serve_diffusion(img: Optional[int], steps: int, n_requests: int,
                    'DDIM steps, precision=%s%s)', n_requests, rate_hz,
                    engine.slots, steps, precision,
                    ', ' + ', '.join(sched) if sched else '')
+    resize_state = {'done': 0, 'fired': False, 'flushed': []}
+
+    def _on_result(res):
+        resize_state['done'] += 1
+        k = resize_after if resize_after is not None else n_requests // 2
+        if not resize_state['fired'] and resize_state['done'] >= k:
+            resize_state['fired'] = True
+            log_elastic.info('%d done -> resizing %s -> %d devices '
+                             'mid-replay', resize_state['done'], devices,
+                             resize_to)
+            resize_state['flushed'].extend(engine.elastic_resize(
+                n_devices=resize_to, precisions=(precision,)))
+            log_elastic.info('rebuilt: %d slots on %d devices, %d parked',
+                             engine.slots, resize_to, len(engine._parked))
+
     t0 = time.perf_counter()
-    results = engine.replay(trace)
+    results = engine.replay(
+        trace, on_result=_on_result if resize_to is not None else None)
+    results.extend(resize_state['flushed'])
     makespan = time.perf_counter() - t0
+    if engine.monitor is not None:
+        report = engine.monitor.check()
+        log_mesh.info('stragglers: %s',
+                      report.recommendation if report else 'none detected')
     s = engine.metrics.summary()
     log_serve.info('%d done in %.2fs (%.2f req/s) p50=%.0fms p95=%.0fms '
                    'p99=%.0fms slo_viol=%d shed=%d', len(results),
@@ -407,11 +468,24 @@ def main(argv=None) -> None:
                     help='offer this multiple of the measured service '
                          'capacity (ignores --rate; bounds the queue and '
                          'enables deadline-aware shedding)')
+    ap.add_argument('--devices', type=int, default=None,
+                    help='shard the slot axis over a 1-D mesh of the '
+                         'first N cards (with --device cpu: N logical CPU '
+                         'shards)')
+    ap.add_argument('--slots-per-device', type=int, default=None,
+                    help='per-device slot budget on the mesh (overrides '
+                         '--slots; the invariant elastic resizes keep)')
     ap.add_argument('--overlap-decode', default='auto',
                     choices=['auto', 'on', 'off'],
                     help="run drained requests' VAE decodes behind the "
-                         'next denoise tick, on a second CUDA stream '
-                         '(auto: off on one device)')
+                         'next denoise tick, on a second CUDA stream of '
+                         'each device (auto: on when sharded)')
+    ap.add_argument('--resize-to', type=int, default=None,
+                    help='elastic-resize the mesh to this many devices '
+                         'mid-replay (the drop/rejoin survival demo)')
+    ap.add_argument('--resize-after', type=int, default=None,
+                    help='completions before the mid-replay resize '
+                         '(default: half the requests)')
     ap.add_argument('--log-level', default='info',
                     choices=['debug', 'info', 'warning', 'error'],
                     help='stdout logging verbosity')
@@ -447,7 +521,12 @@ def main(argv=None) -> None:
                         queue_depth=args.queue_depth,
                         shed_policy=args.shed_policy,
                         overload=args.overload,
-                        overlap_decode=args.overlap_decode == 'on',
+                        devices=args.devices,
+                        slots_per_device=args.slots_per_device,
+                        overlap_decode={'auto': None, 'on': True,
+                                        'off': False}[args.overlap_decode],
+                        resize_to=args.resize_to,
+                        resize_after=args.resize_after,
                         trace_path=args.trace,
                         log_json_path=args.log_json,
                         prom_path=args.prom,

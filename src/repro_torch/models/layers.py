@@ -38,11 +38,14 @@ from repro_torch.core.sparse_dataflow import (conv_nhwc,
 def linear(x: torch.Tensor, w: Union[torch.Tensor, QTensor],
            b: Optional[torch.Tensor] = None,
            policy: Union[PrecisionPolicy, str, None] = None,
-           noise_key: Optional[prng.Key] = None) -> torch.Tensor:
+           noise_key: Optional[prng.Key] = None,
+           first_sample: int = 0) -> torch.Tensor:
     """y = x @ w + b under the precision policy: fp32, or W8A8 (DiffLight
     C1) when the policy is quantized or ``w`` is a pre-quantized QTensor,
     or W8A8 with analog noise drawn from ``noise_key`` (falling back to
-    the policy's ``noise_seed`` anchor) when the policy is noisy."""
+    the policy's ``noise_seed`` anchor) when the policy is noisy, for
+    samples from ``first_sample`` of a larger batch on
+    (``noisy_w8a8_matmul``)."""
     pol = resolve(policy)
     if pol.quantized or isinstance(w, QTensor):
         if pol.noisy:
@@ -50,7 +53,8 @@ def linear(x: torch.Tensor, w: Union[torch.Tensor, QTensor],
             key = noise_key if noise_key is not None else \
                 prng.PRNGKey(pol.noise_seed)
             y = noisy_w8a8_matmul(key, x, w, model=pol.noise,
-                                  n_channels=pol.n_channels).to(x.dtype)
+                                  n_channels=pol.n_channels,
+                                  first_sample=first_sample).to(x.dtype)
         else:
             from repro_torch.kernels import ops
             y = ops.w8a8_matmul(x, w).to(x.dtype)
@@ -265,8 +269,9 @@ class Linear(nn.Module):
         del self.w
         self.w = QWeight(qt)
 
-    def forward(self, x, policy=None, noise_key=None):
-        return linear(x, self.weight, self.b, policy, noise_key)
+    def forward(self, x, policy=None, noise_key=None, first_sample=0):
+        return linear(x, self.weight, self.b, policy, noise_key,
+                      first_sample)
 
 
 class Conv(nn.Module):

@@ -113,7 +113,7 @@ class AttnBlock(nn.Module):
             keys = stream_for(pol)
 
         def proj(lin, v):
-            return lin(v, pol, keys.next())
+            return lin(v, pol, keys.next(), keys.first_sample)
 
         B, H, W, C = x.shape
         t = self.gn(x, groups).reshape(B, H * W, C)
@@ -206,13 +206,15 @@ class UNet(nn.Module):
 
     def forward(self, x: torch.Tensor, t: torch.Tensor,
                 context: Optional[torch.Tensor] = None, policy=None,
-                noise_key=None):
+                noise_key=None, first_sample: int = 0):
         """x (B, H, W, C_in) NHWC, t (B,) int timesteps -> predicted noise.
         ``policy`` sets the precision of every attention projection; a
         noisy one draws from ``noise_key`` (default: the policy's seed
-        anchor), so the forward is deterministic under a fixed key."""
+        anchor), so the forward is deterministic under a fixed key, and
+        draws for x's samples as samples ``first_sample``... of a larger
+        batch (a shard of the engine's slot axis)."""
         pol = resolve(policy)
-        keys = stream_for(pol, noise_key)
+        keys = stream_for(pol, noise_key, first_sample)
         h, skips, t_emb = self.shallow_in(x, t, context, pol, keys)
         h = self.deep(h, t_emb, context, pol, keys)
         return self.shallow_out(h, skips, t_emb, context, pol, keys)

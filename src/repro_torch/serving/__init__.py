@@ -1,6 +1,8 @@
-"""Continuous-batching diffusion serving on one GPU with per-request
+"""Continuous-batching diffusion serving on the GPU with per-request
 precision selection, DeepCache phasing, early exit, photonic energy
-accounting, decode overlap and tracing (port of ``repro/serving``)::
+accounting, decode overlap, tracing, the slot axis sharded over a device
+mesh with elastic resize, and per-bucket routing (port of
+``repro/serving``)::
 
     pipe = DiffusionPipeline.init(0, SD_V1_4, VAE_512)        # on the GPU
     engine = ContinuousBatchingEngine(pipe, slots=4, context=ctx,
@@ -11,10 +13,15 @@ accounting, decode overlap and tracing (port of ``repro/serving``)::
     while engine.busy:
         for result in engine.tick():
             ...  # result.image, result.energy_j, result.quality_psnr_db
+
+    sharded = ContinuousBatchingEngine(pipe, mesh=serving_mesh(2),
+                                       slots_per_device=2, context=ctx)
+    sharded.elastic_resize(n_devices=1)   # a card dropped: work parks
 """
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.serving.api import GenerationRequest, GenerationResult
-from repro_torch.serving.batcher import (align_slots, choose_slots,
+from repro_torch.serving.batcher import (Bucket, BucketRouter, align_slots,
+                                         bucket_for, choose_slots,
                                          group_by_precision, offered_load,
                                          overload_factor, plan_tick,
                                          split_cache_phase)
@@ -27,6 +34,6 @@ __all__ = [
     'GenerationRequest', 'GenerationResult', 'ContinuousBatchingEngine',
     'AdmissionQueue', 'SHED_POLICIES', 'ServingMetrics', 'MetricsSnapshot',
     'PrecisionPolicy', 'PhotonicAccountant', 'FrontierPoint',
-    'align_slots', 'choose_slots', 'group_by_precision', 'offered_load',
+    'Bucket', 'BucketRouter', 'bucket_for', 'align_slots', 'choose_slots', 'group_by_precision', 'offered_load',
     'overload_factor', 'plan_tick', 'split_cache_phase',
 ]

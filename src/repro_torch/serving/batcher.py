@@ -1,5 +1,8 @@
-"""Per-tick step planning and slot sizing, port of
-``repro/serving/batcher.py`` without its buckets: one engine serves
+"""Bucketing, per-tick step planning and slot sizing, port of
+``repro/serving/batcher.py``.  An engine multiplexes only requests that
+agree on the model and the latent shape, so a fleet keys engines by
+``Bucket`` (model name, resolution, channels) and ``BucketRouter``
+routes to them.  Precision is not part of the bucket: one engine serves
 fp32, w8a8 and w8a8+noise requests side by side by running one masked
 step per precision group each tick, and with DeepCache phasing splits
 each group into its refresh and skip slots.  ``offered_load``,
@@ -7,10 +10,28 @@ each group into its refresh and skip slots.  ``offered_load``,
 against the slot buffer by Little's law."""
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import (TYPE_CHECKING, Dict, List, Mapping, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
+
+from repro_torch.serving.api import GenerationRequest, GenerationResult
+
+if TYPE_CHECKING:                                      # pragma: no cover
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+
+
+@dataclasses.dataclass(frozen=True)
+class Bucket:
+    model: str
+    img_size: int
+    in_ch: int
+
+
+def bucket_for(unet_cfg) -> Bucket:
+    return Bucket(unet_cfg.name, unet_cfg.img_size, unet_cfg.in_ch)
 
 
 def group_by_precision(
@@ -124,3 +145,44 @@ def choose_slots(arrival_rate_hz, step_time_s, mean_steps,
         return align_slots(1, n_shards)
     slots = max(1, min(max_slots, math.ceil(in_flight / target_util)))
     return align_slots(slots, n_shards)
+
+
+class BucketRouter:
+    """Routes requests to per-bucket engines and drives them together."""
+
+    def __init__(self):
+        self._engines: Dict[Bucket, 'ContinuousBatchingEngine'] = {}
+
+    def register(self, engine: 'ContinuousBatchingEngine') -> Bucket:
+        b = bucket_for(engine.pipe.unet_cfg)
+        if b in self._engines:
+            raise ValueError(f'bucket {b} already registered')
+        self._engines[b] = engine
+        return b
+
+    def engine(self, bucket: Bucket) -> 'ContinuousBatchingEngine':
+        return self._engines[bucket]
+
+    @property
+    def buckets(self) -> List[Bucket]:
+        return list(self._engines)
+
+    @property
+    def busy(self) -> bool:
+        return any(e.busy for e in self._engines.values())
+
+    def submit(self, req: GenerationRequest, bucket: Optional[Bucket] = None,
+               now: Optional[float] = None) -> bool:
+        """Route to ``bucket``, or to the single registered engine."""
+        if bucket is None:
+            if len(self._engines) != 1:
+                raise ValueError('ambiguous routing: specify a bucket '
+                                 f'({len(self._engines)} registered)')
+            bucket = next(iter(self._engines))
+        return self._engines[bucket].submit(req, now=now)
+
+    def tick(self, now: Optional[float] = None) -> List[GenerationResult]:
+        out: List[GenerationResult] = []
+        for e in self._engines.values():
+            out.extend(e.tick(now))
+        return out

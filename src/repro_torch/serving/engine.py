@@ -1,5 +1,5 @@
-"""Continuous-batching diffusion engine on one device, port of
-``repro/serving/engine.py``.
+"""Continuous-batching diffusion engine on one device or slot-sharded
+over a device mesh, port of ``repro/serving/engine.py``.
 
 The engine owns a fixed ``(slots, H, W, C)`` latent buffer.  Each slot
 carries one in-flight request at its own DDIM step index: every denoise
@@ -28,7 +28,7 @@ different depths share it.  Each request also carries its own precision
 Two schedulers make the per-tick cost dynamic:
 
   * **DeepCache-phased slots** (``cache_interval > 1``): slot-axis
-    feature-cache buffers (``_cache_c``, and ``_cache_u`` for the
+    feature-cache buffers (a shard's ``cache_c``, and ``cache_u`` for the
     unconditional branch under guidance) hold the activation entering
     the last up level.  A refresh entry of the plan runs the full UNet
     and rewrites the cache rows of the slots it ran; a skip entry runs
@@ -56,13 +56,14 @@ the steady tick time at full occupancy, which sizes overload traffic
 then also sheds a queued request whose deadline falls inside its own
 estimated service time.
 
-Decode overlap (``overlap_decode``, off by default as on the reference's
-one device): a drained slot's VAE decode is dispatched and the slot
-refilled at once; its image materializes only after the NEXT tick's
-steps are enqueued, so results surface one tick later and an idle tick
-flushes the rest.  On CUDA the decode and its copy to pinned host memory
-run on a second stream that first waits for the main one, so they run
-behind the next UNet step; on the CPU the same split runs in order.
+Decode overlap (``overlap_decode``, by default on exactly when sharded,
+as in the reference): a drained slot's VAE decode is dispatched and the
+slot refilled at once; its image materializes only after the NEXT
+tick's steps are enqueued, so results surface one tick later and an
+idle tick flushes the rest.  On CUDA the decode and its copy to pinned
+host memory run on a second stream of the slot's device that first
+waits for the main one, so they run behind the next UNet step; on the
+CPU the same split runs in order.
 
 Tracing (``tracer=``, a ``repro_torch.obs.Tracer``; default the no-op
 ``NULL_TRACER``): the reference's event stream, every hook guarded on
@@ -74,15 +75,33 @@ and an occupancy counter.  ``reporter`` (a ``SnapshotReporter``) is
 polled once per tick.  Step and tick spans time the host's enqueue: the
 device runs behind it.
 
-The engine runs eagerly (no graph capture) on one device; mesh sharding
-and elastic resize are not ported.
+Sharded serving (``mesh=``, a ``launch.mesh.serving_mesh``): the slot
+axis splits over the mesh's devices, shard i owning slot rows ``i*spd
+... (i+1)*spd - 1`` (``spd`` = slots per device) of x, x0, the DeepCache
+buffers and the context, on its device, with one parameter replica per
+distinct device (two logical shards on one card share one).  Each plan
+entry's step runs once per shard on that shard's rows, every shard's work
+issued before any sync, so shards on several cards run at once.  A noisy
+step draws what the unsharded step draws: the tick's key folds in global
+slot 0's timestep, and each shard's noisy matmuls take their rows of the
+draws over the whole slot buffer (``core/photonic/noise``).  Decode
+overlap (default on exactly when sharded) uses a side stream per device.
+``elastic_resize`` rebuilds the shards on a new mesh after devices drop
+or rejoin at the same slots per device: in-flight rows gather to the
+host, the overflow parks and re-enters freed slots ahead of the queue
+(with a forced DeepCache refresh), and the context is re-tiled when all
+its rows are equal.  A ``StepMonitor`` (``engine.monitor``) gets each
+tick's wall time for every device, and ``on_straggler`` fires when its
+flagged set changes.
+
+The engine runs eagerly (no graph capture).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -92,9 +111,12 @@ from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.diffusion import samplers
 from repro_torch.diffusion.deepcache import unet_apply_cached
 from repro_torch.diffusion.pipeline import DiffusionPipeline, initial_noise
+from repro_torch.distributed.fault_tolerance import (StepMonitor,
+                                                     elastic_serving_plan)
+from repro_torch.launch.mesh import ServingMesh, serving_mesh
 from repro_torch.obs.tracer import NULL_TRACER, Tracer
 from repro_torch.serving.api import GenerationRequest, GenerationResult
-from repro_torch.serving.batcher import plan_tick
+from repro_torch.serving.batcher import align_slots, plan_tick
 from repro_torch.serving.metrics import PhotonicAccountant, ServingMetrics
 from repro_torch.serving.queue import AdmissionQueue
 
@@ -118,6 +140,27 @@ class _Active:
     full_evals: int = 0          # full-UNet ticks consumed so far
     cached_evals: int = 0        # shallow (skip) ticks consumed so far
     exit_streak: int = 0         # consecutive ticks under exit_tol
+    force_refresh: bool = False  # next tick is a full pass: a parked
+    #                              request's DeepCache rows did not survive
+
+
+@dataclasses.dataclass
+class _Shard:
+    """Slot rows ``lo ... hi - 1`` on one device: the pipeline replica
+    there and those rows of every slot buffer."""
+    lo: int
+    hi: int
+    pipe: DiffusionPipeline
+    x: torch.Tensor
+    x0: torch.Tensor
+    delta: torch.Tensor
+    context: Optional[torch.Tensor]
+    cache_c: Optional[torch.Tensor]
+    cache_u: Optional[torch.Tensor]
+
+    @property
+    def device(self) -> torch.device:
+        return self.pipe.device
 
 
 @dataclasses.dataclass
@@ -148,11 +191,15 @@ class ContinuousBatchingEngine:
                  cache_interval: int = 1,
                  exit_tol: Optional[float] = None,
                  exit_patience: int = 2,
-                 overlap_decode: bool = False,
+                 mesh: Optional[ServingMesh] = None,
+                 slots_per_device: Optional[int] = None,
+                 overlap_decode: Optional[bool] = None,
                  tracer: Optional[Tracer] = None,
+                 on_straggler=None,
                  reporter=None):
         """``context``: the ``(slots, T, context_dim)`` conditioning the
-        conditional branch attends to (None: unconditional model).
+        conditional branch attends to (None: unconditional model); rows
+        that are all equal are re-tiled to the slot count.
         ``noise_seed``: the ``w8a8+noise`` policy's seed (its noise model
         is the paper's).  Every result is priced by a
         ``PhotonicAccountant`` for the pipeline's UNet.
@@ -162,10 +209,19 @@ class ContinuousBatchingEngine:
         cadence, a full pass every ``cache_interval`` ticks (1: caching
         off).  ``exit_tol`` / ``exit_patience``: engine-wide early-exit
         defaults, which requests override per field (``exit_tol=None``
-        leaves early exit off).  ``overlap_decode``: run each drained
-        slot's decode behind the next tick (on CUDA, on a second stream).
+        leaves early exit off).
+
+        ``mesh``: a 1-D ``('data',)`` mesh (``launch.mesh.serving_mesh``)
+        over which the slot axis shards.  ``slots_per_device`` then
+        overrides ``slots`` with a per-device budget (the invariant
+        ``elastic_resize`` keeps); otherwise ``slots`` rounds up to a
+        multiple of the mesh size.  ``overlap_decode`` (default: on
+        exactly when sharded): run each drained slot's decode behind the
+        next tick (on CUDA, on a side stream of its device).
         ``tracer``: a ``repro_torch.obs.Tracer`` recording the request and
         engine event stream (default: the no-op ``NULL_TRACER``).
+        ``on_straggler``: called with the ``StragglerReport`` whenever the
+        ``StepMonitor``'s flagged-device set changes.
         ``reporter``: a ``repro_torch.obs.SnapshotReporter`` polled once a
         tick."""
         if slots < 1:
@@ -175,18 +231,41 @@ class ContinuousBatchingEngine:
         self._created = time.perf_counter()   # time-to-first-tick origin
         self.pipe = pipe
         self.device = pipe.device
+        self.mesh = mesh
+        if mesh is not None:
+            ndev = mesh.size
+            if slots_per_device is not None:
+                if slots_per_device < 1:
+                    raise ValueError('slots_per_device must be >= 1')
+                slots = slots_per_device * ndev
+            else:
+                slots = align_slots(slots, ndev)
+            self._slots_per_device = slots // ndev
+            self.monitor = StepMonitor(n_hosts=ndev)
+        else:
+            self._slots_per_device = slots
+            self.monitor = None
         self.slots = slots
-        self.context = None if context is None else context.to(self.device)
+        self.overlap_decode = (mesh is not None) if overlap_decode is None \
+            else bool(overlap_decode)
+        if context is not None:
+            context = context.to(self.device)
+            if context.shape[0] != slots:
+                context = self._retile_context(context, slots)
+        self.context = context
         # `is not None`: an empty AdmissionQueue is falsy
         self.queue = queue if queue is not None else AdmissionQueue()
         self.metrics = metrics if metrics is not None else ServingMetrics()
+        if mesh is not None:
+            self.metrics.devices = mesh.size
         self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.on_straggler = on_straggler
         self.reporter = reporter
-        self.overlap_decode = bool(overlap_decode)
-        # the decode stream; the CPU runs the overlapped decode in order
-        self._side = torch.cuda.Stream(self.device) \
-            if self.overlap_decode and self.device.type == 'cuda' else None
+        self._straggler_flagged: Tuple[int, ...] = ()
         self._pending: List[_Pending] = []
+        # requests displaced by an elastic shrink: (active, x row, x0 row)
+        # on the host, re-admitted ahead of the queue as slots free
+        self._parked: List[Tuple[_Active, torch.Tensor, torch.Tensor]] = []
         self._tick_s: Optional[float] = None   # measured seconds per tick
         self._wall_t0 = 0.0          # serving-clock origin (set by replay)
         self._user_on_shed = self.queue.on_shed
@@ -199,26 +278,81 @@ class ContinuousBatchingEngine:
         self.exit_patience = exit_patience
         cfg = pipe.unet_cfg
         self._sample_shape = (cfg.img_size, cfg.img_size, cfg.in_ch)
-        self.x = torch.zeros((slots,) + self._sample_shape, device=self.device)
-        # previous-tick x0 predictions and the per-slot relative x0
-        # movement of the last step: the early-exit convergence signal
-        self.x0 = torch.zeros_like(self.x)
-        self.delta = torch.zeros(slots, device=self.device)
+        # the DeepCache row: the activation entering the last up level
+        # (full resolution, the second level's channels)
+        ch = cfg.base_ch * cfg.ch_mults[min(1, len(cfg.ch_mults) - 1)]
+        self._cache_row = (cfg.img_size, cfg.img_size, ch)
         self._slot: List[Optional[_Active]] = [None] * slots
         self._traj: Dict[int, np.ndarray] = {}
         self._policies: Dict[str, PrecisionPolicy] = {}
         self._probe_done = 0
         self._phase = 0              # shared refresh cadence position
-        # slot-axis DeepCache buffers: the activation entering the last up
-        # level (full resolution, the second level's channels), one row
-        # per slot; the unconditional branch's apart under guidance
-        self._cache_c = self._cache_u = None
-        if cache_interval > 1:
-            ch = cfg.base_ch * cfg.ch_mults[min(1, len(cfg.ch_mults) - 1)]
-            row = (slots, cfg.img_size, cfg.img_size, ch)
-            self._cache_c = torch.zeros(row, device=self.device)
-            if self.context is not None:
-                self._cache_u = torch.zeros(row, device=self.device)
+        # one parameter replica per distinct device, and per CUDA device
+        # a decode stream (the CPU runs the overlapped decode in order)
+        self._replicas: Dict[torch.device, DiffusionPipeline] = {
+            self.device: pipe}
+        self._sides: Dict[torch.device, torch.cuda.Stream] = {}
+        self._build_shards()
+
+    @staticmethod
+    def _retile_context(context: torch.Tensor, slots: int) -> torch.Tensor:
+        """``context``'s shared row tiled to ``slots`` rows.  Rows that
+        differ cannot follow their requests to other slots (the engine
+        keeps no per-request context), so they raise."""
+        if not bool((context == context[:1]).all()):
+            raise ValueError(
+                f'context has {context.shape[0]} distinct rows: the engine '
+                'keeps no per-request context, so only a context whose rows '
+                'are all equal can be re-tiled to a new slot count or follow '
+                'requests that a resize moves to other slots')
+        return context[:1].repeat((slots,) + (1,) * (context.ndim - 1))
+
+    def _build_shards(self) -> None:
+        """(Re)build one shard per mesh device (one over every slot when
+        unsharded) with zeroed buffers, on a replica of the pipeline."""
+        devices = self.mesh.devices if self.mesh is not None \
+            else (self.device,)
+        spd = self._slots_per_device
+        self._shards: List[_Shard] = []
+        for i, dev in enumerate(devices):
+            if dev not in self._replicas:
+                self._replicas[dev] = self.pipe.to(dev)
+            if self.overlap_decode and dev.type == 'cuda' \
+                    and dev not in self._sides:
+                self._sides[dev] = torch.cuda.Stream(dev)
+            lo, hi = i * spd, (i + 1) * spd
+            x = torch.zeros((spd,) + self._sample_shape, device=dev)
+            cache_c = cache_u = None
+            if self.cache_interval > 1:
+                cache_c = torch.zeros((spd,) + self._cache_row, device=dev)
+                if self.context is not None:
+                    # the unconditional branch's rows, apart under guidance
+                    cache_u = torch.zeros_like(cache_c)
+            self._shards.append(_Shard(
+                lo=lo, hi=hi, pipe=self._replicas[dev], x=x,
+                x0=torch.zeros_like(x),
+                delta=torch.zeros(spd, device=dev),
+                context=None if self.context is None
+                else self.context[lo:hi].to(dev),
+                cache_c=cache_c, cache_u=cache_u))
+        # replicas of devices the mesh no longer holds are freed
+        keep = {self.device} | {sh.device for sh in self._shards}
+        for dev in [d for d in self._replicas if d not in keep]:
+            del self._replicas[dev]
+
+    def _shard_of(self, idx: int) -> Tuple[_Shard, int]:
+        """The shard holding slot ``idx`` and the slot's row in it."""
+        sh = self._shards[idx // self._slots_per_device]
+        return sh, idx - sh.lo
+
+    @property
+    def delta(self) -> torch.Tensor:
+        """Per-slot relative x0 movement of the last step, (slots,), on
+        the first shard's device."""
+        parts = [sh.delta for sh in self._shards]
+        if len(parts) == 1:
+            return parts[0]
+        return torch.cat([p.to(parts[0].device) for p in parts])
 
     # -- precision machinery ------------------------------------------------
     def _policy_for(self, name: str) -> PrecisionPolicy:
@@ -256,47 +390,50 @@ class ContinuousBatchingEngine:
         g = guidance.reshape((-1,) + (1,) * (eps_c.ndim - 1))
         return torch.where(g > 0, eps_u + g * (eps_c - eps_u), eps_c)
 
-    def _step(self, pol: PrecisionPolicy, guided: bool, t, t_prev, active,
-              guidance, key, t_first: int):
-        """One masked mixed-timestep step of every slot in ``active``.
+    def _step(self, sh: _Shard, pol: PrecisionPolicy, guided: bool, t,
+              t_prev, active, guidance, key, t_first: int):
+        """One masked mixed-timestep step of the shard's slots in
+        ``active`` (t, t_prev, active and guidance: the shard's rows).
         Guided: per-slot classifier-free guidance against the
         unconditional eps, only for slots with guidance > 0.  ``key``:
         the tick's noise key (None unless the policy is noisy);
-        ``t_first``: slot 0's timestep, which a noisy evaluation's key
-        folds in."""
-        pipe, x = self.pipe, self.x
-        eps = pipe._eps_fn(self.context, 0.0, pol, key)(x, t, t_first)
+        ``t_first``: global slot 0's timestep, which a noisy evaluation's
+        key folds in."""
+        pipe, x = sh.pipe, sh.x
+        # sh.lo: where the shard's rows sit in the draws over every slot
+        eps = pipe._eps_fn(sh.context, 0.0, pol, key, sh.lo)(x, t, t_first)
         if guided:
             ukey = None if key is None else prng.fold_in(key, 1)
-            eps_u = pipe._eps_fn(None, 0.0, pol, ukey)(x, t, t_first)
+            eps_u = pipe._eps_fn(None, 0.0, pol, ukey, sh.lo)(x, t, t_first)
             eps = self._guide(eps, eps_u, guidance)
-        return self._finish_step(pipe.sched, eps, x, self.x0, t, t_prev,
+        return self._finish_step(pipe.sched, eps, x, sh.x0, t, t_prev,
                                  active)
 
-    def _cached_step(self, pol: PrecisionPolicy, guided: bool, refresh: bool,
-                     t, t_prev, active, guidance, key):
-        """DeepCache-phased step: ``refresh`` runs the full pass and
-        rewrites the cache rows of the slots in ``active``; a skip step
-        runs the shallow pass on the cached rows and leaves the buffers
-        as they are.  The noisy key goes to the UNet as it is."""
-        pipe, x = self.pipe, self.x
+    def _cached_step(self, sh: _Shard, pol: PrecisionPolicy, guided: bool,
+                     refresh: bool, t, t_prev, active, guidance, key):
+        """DeepCache-phased step of the shard: ``refresh`` runs the full
+        pass and rewrites the cache rows of the slots in ``active``; a
+        skip step runs the shallow pass on the cached rows and leaves the
+        buffers as they are.  The noisy key goes to the UNet as it is."""
+        pipe, x = sh.pipe, sh.x
         cfg = pipe.unet_cfg
-        eps, new_c = unet_apply_cached(pipe.unet, cfg, x, t, self._cache_c,
-                                       refresh, self.context, pol,
-                                       noise_key=key)
+        eps, new_c = unet_apply_cached(pipe.unet, cfg, x, t, sh.cache_c,
+                                       refresh, sh.context, pol,
+                                       noise_key=key, first_sample=sh.lo)
         if guided:
             ukey = None if key is None else prng.fold_in(key, 1)
             eps_u, new_u = unet_apply_cached(pipe.unet, cfg, x, t,
-                                             self._cache_u, refresh, None,
-                                             pol, noise_key=ukey)
+                                             sh.cache_u, refresh, None,
+                                             pol, noise_key=ukey,
+                                             first_sample=sh.lo)
             eps = self._guide(eps, eps_u, guidance)
-        out = self._finish_step(pipe.sched, eps, x, self.x0, t, t_prev,
+        out = self._finish_step(pipe.sched, eps, x, sh.x0, t, t_prev,
                                 active)
         if refresh:
             cm = active.reshape((-1,) + (1,) * (new_c.ndim - 1))
-            self._cache_c = torch.where(cm, new_c, self._cache_c)
+            sh.cache_c = torch.where(cm, new_c, sh.cache_c)
             if guided:
-                self._cache_u = torch.where(cm, new_u, self._cache_u)
+                sh.cache_u = torch.where(cm, new_u, sh.cache_u)
         return out
 
     def _tick_key(self, pol: PrecisionPolicy,
@@ -315,7 +452,7 @@ class ContinuousBatchingEngine:
     @property
     def busy(self) -> bool:
         return (self.active_count > 0 or len(self.queue) > 0
-                or bool(self._pending))
+                or bool(self._pending) or bool(self._parked))
 
     @property
     def tick_s_estimate(self) -> Optional[float]:
@@ -344,6 +481,34 @@ class ContinuousBatchingEngine:
         energy_j, _ = self.photonic.energy_evals(full, cached, guided,
                                                  precision=precision)
         return energy_j
+
+    def _slot_device(self, idx: int) -> Optional[int]:
+        """Mesh position of the device carrying slot ``idx`` (None
+        unsharded)."""
+        if self.mesh is None:
+            return None
+        return idx // self._slots_per_device
+
+    def _poll_straggler(self):
+        """Check the ``StepMonitor`` and, when its flagged-device set
+        changes, emit a ``straggler`` trace event and call
+        ``on_straggler`` (edge-triggered: a persistent straggler does not
+        fire every tick).  Returns the current report (None when
+        clean)."""
+        if self.monitor is None:
+            return None
+        report = self.monitor.check()
+        flagged = tuple(report.slow_hosts) if report is not None else ()
+        if flagged and flagged != self._straggler_flagged:
+            self.tracer.instant('straggler', cat='engine',
+                                slow_devices=list(flagged),
+                                median_s=report.median_s,
+                                threshold_s=report.threshold_s,
+                                recommendation=report.recommendation)
+            if self.on_straggler is not None:
+                self.on_straggler(report)
+        self._straggler_flagged = flagged
+        return report
 
     def _queue_shed(self, reason: str, req: GenerationRequest,
                     now: float) -> None:
@@ -381,11 +546,37 @@ class ContinuousBatchingEngine:
     def _cached_active(self) -> int:
         return sum(a is not None and a.cache_on for a in self._slot)
 
+    def _unpark(self, idx: int) -> None:
+        """Re-admit the oldest parked request into free slot ``idx``: its
+        latent and x0 rows come back from the host.  Its DeepCache rows
+        were not parked (a resize rebuilds those buffers), so a cached
+        request re-enters with ``force_refresh``: its first tick back is
+        a full pass that rewrites them."""
+        a, hx, hx0 = self._parked.pop(0)
+        sh, row = self._shard_of(idx)
+        sh.x[row] = hx.to(sh.device)
+        sh.x0[row] = hx0.to(sh.device)
+        if a.cache_on:
+            a.force_refresh = True
+        self._slot[idx] = a
+        if self.tracer.enabled:
+            self.tracer.instant('unpark', cat='queue',
+                                rid=a.request.request_id, slot=idx,
+                                device=self._slot_device(idx),
+                                step_index=a.i)
+
     def _admit(self, now: float) -> None:
         if self.queue.has_deadlines:
             # a request dead now, or dead before it could finish, never
             # takes a slot
             self.queue.expire(now, margin_s=self._service_margin_s)
+        # parked (resize-displaced) requests re-enter ahead of the queue;
+        # force_refresh lets them rejoin mid-cadence (a mixed tick)
+        for idx in range(self.slots):
+            if not self._parked:
+                break
+            if self._slot[idx] is None:
+                self._unpark(idx)
         if self.cache_interval > 1:
             if self._cached_active() == 0:
                 # nothing rides the cadence: re-anchor it, so an idle
@@ -417,13 +608,15 @@ class ContinuousBatchingEngine:
             if self.tracer.enabled:
                 self.tracer.instant('slot_assign', cat='queue', ts=now,
                                     rid=req.request_id, slot=idx,
+                                    device=self._slot_device(idx),
                                     queue_wait_s=now - q.enqueue_time)
+            sh, row = self._shard_of(idx)
             noise = initial_noise(req.seed, (1,) + self._sample_shape,
-                                  self.device)[0]
-            self.x[idx] = noise
+                                  sh.device)[0]
+            sh.x[row] = noise
             # the x0 tracker starts at the noise: the first delta is
             # meaningless
-            self.x0[idx] = noise
+            sh.x0[row] = noise
 
     def _fp32_reference(self, req: GenerationRequest,
                         guided: bool) -> np.ndarray:
@@ -455,19 +648,20 @@ class ContinuousBatchingEngine:
         waits for the device."""
         a = self._slot[idx]
         self._slot[idx] = None
+        sh, row = self._shard_of(idx)
         # the copy, on the main stream before the slot is refilled:
         # admission overwrites the slot row in place, and without a VAE
         # the decode is that row itself
-        z = (self.x0 if early else self.x)[idx:idx + 1].clone()
+        z = (sh.x0 if early else sh.x)[row:row + 1].clone()
         done = None
-        if self._side is None:
-            host = self.pipe.decode(z)[0].cpu()
+        side = self._sides.get(sh.device)
+        if side is None:
+            host = sh.pipe.decode(z)[0].cpu()
         else:
-            side = self._side
-            side.wait_stream(torch.cuda.current_stream(self.device))
+            side.wait_stream(torch.cuda.current_stream(sh.device))
             z.record_stream(side)    # made on the main stream, used here
             with torch.cuda.stream(side):
-                image = self.pipe.decode(z)[0]
+                image = sh.pipe.decode(z)[0]
                 host = torch.empty(image.shape, dtype=image.dtype,
                                    pin_memory=True)
                 host.copy_(image, non_blocking=True)
@@ -477,10 +671,12 @@ class ContinuousBatchingEngine:
             if early:
                 self.tracer.instant('early_exit', cat='request', ts=now,
                                     rid=a.request.request_id, slot=idx,
+                                    device=self._slot_device(idx),
                                     steps_executed=a.i,
                                     steps_requested=a.request.steps)
             self.tracer.instant('decode_dispatch', cat='decode', ts=now,
-                                rid=a.request.request_id, slot=idx)
+                                rid=a.request.request_id, slot=idx,
+                                device=self._slot_device(idx))
         return _Pending(active=a, host=host, done=done, now=now,
                         wall_clock=wall_clock, early=early, slot=idx)
 
@@ -526,12 +722,14 @@ class ContinuousBatchingEngine:
         if self.tracer.enabled:
             self.tracer.instant('decode_done', cat='decode', ts=now,
                                 rid=req.request_id, slot=p.slot,
+                                device=self._slot_device(p.slot),
                                 overlapped=overlapped)
             # stamped from the result's own timing fields, so the trace's
             # latency is the metrics' latency
             self.tracer.complete(
                 'request', a.submit_time, now, cat='request',
-                rid=req.request_id, slot=p.slot, trace_id=res.trace_id,
+                rid=req.request_id, slot=p.slot,
+                device=self._slot_device(p.slot), trace_id=res.trace_id,
                 precision=req.precision, steps_executed=a.i,
                 full_evals=a.full_evals, cached_evals=a.cached_evals,
                 early_exit=early, queue_wait_s=res.queue_delay_s,
@@ -582,7 +780,8 @@ class ContinuousBatchingEngine:
             t[idx] = a.ts[a.i]
             t_prev[idx] = a.ts[a.i + 1] if a.i + 1 < len(a.ts) else -1
             guidance[idx] = a.request.guidance
-            needs_refresh[idx] = (not a.cache_on) or a.i == 0 or refresh_tick
+            needs_refresh[idx] = ((not a.cache_on) or a.i == 0
+                                  or refresh_tick or a.force_refresh)
             if a.exit_tol > 0.0 and a.i + 1 >= EXIT_MIN_STEPS:
                 track_exit = True
         plan = plan_tick([a.request.precision if a is not None else None
@@ -594,25 +793,30 @@ class ContinuousBatchingEngine:
             full_slots=int((active & needs_refresh).sum()),
             cached_slots=int((active & ~needs_refresh).sum()))
         had_cached = self._cached_active() > 0
-        dev = self.device
-        t_d = torch.from_numpy(t).to(dev)
-        tp_d = torch.from_numpy(t_prev).to(dev)
+
+        def rows(sh, a):
+            return torch.from_numpy(a[sh.lo:sh.hi]).to(sh.device)
+
+        ts_d = [(rows(sh, t), rows(sh, t_prev)) for sh in self._shards]
         traced = self.tracer.enabled
         for pname, refresh, m in plan:
             pol = self._policy_for(pname)
             g = np.where(m, guidance, 0.0).astype(np.float32)
             guided = self.context is not None and bool(g.any())
             key = self._tick_key(pol, tick_idx)
-            m_d = torch.from_numpy(m).to(dev)
-            g_d = torch.from_numpy(g).to(dev)
             t_step0 = self.tracer.now() if traced else 0.0
-            if caching:
-                self.x, self.x0, d = self._cached_step(
-                    pol, guided, refresh, t_d, tp_d, m_d, g_d, key)
-            else:
-                self.x, self.x0, d = self._step(
-                    pol, guided, t_d, tp_d, m_d, g_d, key, int(t[0]))
-            self.delta = torch.where(m_d, d, self.delta)
+            # every shard runs the entry on its rows; nothing here syncs,
+            # so shards on different cards run at once
+            for sh, (t_d, tp_d) in zip(self._shards, ts_d):
+                m_d, g_d = rows(sh, m), rows(sh, g)
+                if caching:
+                    sh.x, sh.x0, d = self._cached_step(
+                        sh, pol, guided, refresh, t_d, tp_d, m_d, g_d, key)
+                else:
+                    sh.x, sh.x0, d = self._step(
+                        sh, pol, guided, t_d, tp_d, m_d, g_d, key,
+                        int(t[0]))
+                sh.delta = torch.where(m_d, d, sh.delta)
             if traced:
                 n_m = int(m.sum())
                 self.tracer.complete(
@@ -625,8 +829,9 @@ class ContinuousBatchingEngine:
         # now, behind the steps just enqueued
         done = self._flush_pending(overlapped=True)
         if self.metrics.first_tick_s is None:
-            if dev.type == 'cuda':
-                torch.cuda.synchronize(dev)
+            for dev in {sh.device for sh in self._shards}:
+                if dev.type == 'cuda':
+                    torch.cuda.synchronize(dev)
             self.metrics.record_first_tick(time.perf_counter() - self._created)
         # the x0-convergence deltas reach the host (one small sync) only
         # when some slot may exit this tick
@@ -636,6 +841,7 @@ class ContinuousBatchingEngine:
                 continue
             if needs_refresh[idx]:
                 a.full_evals += 1
+                a.force_refresh = False      # cache rows rewritten
             else:
                 a.cached_evals += 1
             a.i += 1
@@ -657,6 +863,14 @@ class ContinuousBatchingEngine:
                     done.append(self._finish_drain(p))
         if caching and had_cached:
             self._phase = (self._phase + 1) % self.cache_interval
+        if self.monitor is not None:
+            # one process drives every shard, so each records the tick's
+            # wall time: the hook a deployment feeds per-device timings
+            # into (check() then recommends the elastic_resize target)
+            dt = time.perf_counter() - t_tick0
+            for i in range(self.mesh.size):
+                self.monitor.record(i, dt)
+            self._poll_straggler()
         if traced:
             t1 = self.tracer.now()
             self.tracer.complete(
@@ -726,12 +940,71 @@ class ContinuousBatchingEngine:
     def _restore(self, saved) -> None:
         self.queue, self.metrics, self.quality_probe, self.tracer = saved
 
-    def warmup(self, precisions=('fp32',)) -> float:
-        """Run throwaway requests per precision (and a guided one when the
-        engine holds a context), so the kernels are built and loaded and
-        every step variant has run before serving; with caching on, each
-        long enough to cross a refresh boundary (a refresh and a skip
-        step).  Returns wall seconds, also recorded in the metrics."""
+    def elastic_resize(self, n_devices: Optional[int] = None,
+                       devices=None, warm: bool = True,
+                       precisions=('fp32',)) -> List[GenerationResult]:
+        """Rebuild the shards on a new ``('data',)`` mesh after devices
+        drop or rejoin, keeping in-flight work.
+
+        ``elastic_serving_plan`` sizes the new slot buffer at this
+        engine's slots per device (dropped devices shrink it, never
+        overload a survivor).  Pending overlapped decodes flush first and
+        their results are returned.  In-flight latent and x0 rows gather
+        to the host and park ahead of work parked earlier, then re-enter
+        the new buffer's free slots; when it is smaller, the overflow
+        stays parked and re-enters ahead of the queue as slots free.  The
+        context is re-tiled to the new slot count (``_retile_context``:
+        its rows must all be equal, even at an unchanged count, since
+        requests change slots).
+        ``warm=True`` runs ``warmup(precisions)``'s throwaway requests on
+        the new shards before any parked work re-enters (off the
+        metrics).  ``n_devices`` takes the first N devices of the engine's
+        kind (``serving_mesh``); ``devices`` names the surviving list."""
+        if self.mesh is None:
+            raise ValueError('elastic_resize needs a mesh-sharded engine '
+                             '(construct with mesh=serving_mesh(...))')
+        if n_devices is None and devices is None:
+            raise ValueError('pass n_devices or an explicit device list')
+        mesh = serving_mesh(n_devices=n_devices, devices=devices,
+                            device=self.mesh.devices[0].type)
+        old_ndev, new_ndev = self.mesh.size, mesh.size
+        _, _, new_slots = elastic_serving_plan(new_ndev,
+                                               self._slots_per_device)
+        # checked before anything changes: live requests re-pack into the
+        # first slots, so rows that differ raise here even at one count
+        context = None if self.context is None else \
+            self._retile_context(self.context, new_slots)
+        flushed = self._flush_pending(overlapped=False)
+        live = []
+        for idx, a in enumerate(self._slot):
+            if a is not None:
+                sh, row = self._shard_of(idx)
+                live.append((a, sh.x[row].cpu(), sh.x0[row].cpu()))
+        # in-flight work ahead of work parked earlier, ahead of the queue
+        parked = live + self._parked
+        self.mesh, self.slots, self.context = mesh, new_slots, context
+        self._slot = [None] * new_slots
+        self._parked = []
+        self._build_shards()
+        self.monitor = StepMonitor(n_hosts=new_ndev)
+        self._straggler_flagged = ()
+        if warm:
+            phase = self._phase
+            self._warm(precisions)        # the new shards, still empty
+            self._phase = phase
+        self._parked = parked
+        self.metrics.record_resize(old_ndev, new_ndev)
+        self.tracer.instant('elastic_resize', cat='engine',
+                            old_devices=old_ndev, new_devices=new_ndev,
+                            slots=new_slots, parked=len(self._parked))
+        for idx in range(self.slots):
+            if not self._parked:
+                break
+            self._unpark(idx)
+        return flushed
+
+    def _warm(self, precisions) -> float:
+        """``warmup``'s throwaway requests; returns their wall seconds."""
         t0 = time.perf_counter()
         saved = self._throwaway()
         steps = 1 if self.cache_interval <= 1 else self.cache_interval + 1
@@ -745,7 +1018,16 @@ class ContinuousBatchingEngine:
                     self.run_until_idle(now=0.0)
         finally:
             self._restore(saved)
-        dt = time.perf_counter() - t0
+        return time.perf_counter() - t0
+
+    def warmup(self, precisions=('fp32',)) -> float:
+        """Run throwaway requests per precision (and a guided one when the
+        engine holds a context), so the kernels are built and loaded and
+        every step variant has run on every shard before serving; with
+        caching on, each long enough to cross a refresh boundary (a
+        refresh and a skip step).  Returns wall seconds, also recorded in
+        the metrics."""
+        dt = self._warm(precisions)
         self.metrics.record_warmup(dt)
         if self.tracer.enabled:
             t1 = self.tracer.now()

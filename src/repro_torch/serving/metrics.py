@@ -13,8 +13,9 @@ digital baseline (EPB at 94.18x DiffLight's, 32-bit operands).
 
 ``ServingMetrics`` keeps the queue/latency ledger (p50/p95/p99 latency,
 p50/p99 queue wait and their sums, requests/s, tick counters, SLO
-violations, sheds by cause, peak queue depth, warmup, time-to-first-tick
-and decodes overlapped with the next tick), the DeepCache
+violations, sheds by cause, peak queue depth, warmup, time-to-first-tick,
+decodes overlapped with the next tick, elastic resizes and the slot-shard
+count), the DeepCache
 and early-exit counters (full and cached slot-steps, cache hit rate,
 mixed ticks, early exits, steps saved) and the frontier: one
 ``FrontierPoint`` per completed request and per-policy aggregates.
@@ -24,7 +25,7 @@ from __future__ import annotations
 import bisect
 import dataclasses
 import math
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from repro_torch.serving.api import GenerationResult
 
@@ -147,9 +148,8 @@ class MetricsSnapshot:
     steps_saved: int = 0         # total requested-minus-executed steps
     steps_saved_hist: Dict[int, int] = dataclasses.field(
         default_factory=dict)
-    # the reference's sharded-serving counters: one device, never resized
-    resizes: int = 0
-    devices: int = 1
+    resizes: int = 0             # elastic mesh resizes survived
+    devices: int = 1             # slot-shard count after the last resize
     overlapped_decodes: int = 0  # drains whose VAE decode overlapped the
     #                              next denoise tick
     frontier: Dict[str, Dict[str, float]] = dataclasses.field(
@@ -175,7 +175,7 @@ class ServingMetrics:
         self.early_exits = 0
         self.steps_saved = 0
         self.steps_saved_hist: Dict[int, int] = {}
-        self.resizes = 0
+        self.resizes: List[Tuple[int, int]] = []    # (old, new) devices
         self.devices = 1
         self.overlapped_decodes = 0
         self.frontier_points: List[FrontierPoint] = []
@@ -212,6 +212,12 @@ class ServingMetrics:
         """Engine construction to completion of the first served tick."""
         if self.first_tick_s is None:
             self.first_tick_s = seconds
+
+    def record_resize(self, old_devices: int, new_devices: int):
+        """One elastic mesh resize survived (devices dropped or
+        rejoined)."""
+        self.resizes.append((old_devices, new_devices))
+        self.devices = new_devices
 
     def record_overlapped_decode(self, n: int = 1):
         """Drains whose VAE decode ran behind the next denoise tick."""
@@ -359,7 +365,7 @@ class ServingMetrics:
             early_exits=self.early_exits,
             steps_saved=self.steps_saved,
             steps_saved_hist=dict(self.steps_saved_hist),
-            resizes=self.resizes,
+            resizes=len(self.resizes),
             devices=self.devices,
             overlapped_decodes=self.overlapped_decodes,
             frontier=self.frontier())

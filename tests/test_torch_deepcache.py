@@ -402,10 +402,10 @@ def test_engine_tolerance_fails_a_wrong_key_chain(
     else:
         cached = tengine.unet_apply_cached
 
-        def folding_t(unet, cfg, x, t, *a, noise_key=None):
+        def folding_t(unet, cfg, x, t, *a, noise_key=None, **kw):
             if noise_key is not None:
                 noise_key = prng.fold_in(noise_key, int(t[0]))
-            return cached(unet, cfg, x, t, *a, noise_key=noise_key)
+            return cached(unet, cfg, x, t, *a, noise_key=noise_key, **kw)
         monkeypatch.setattr(tengine, 'unet_apply_cached', folding_t)
     teng = _port_engine(tpipe, engine_ctx, 'amplified', monkeypatch, **kw)
     got = _serve(teng, TReq)
@@ -422,9 +422,9 @@ def test_uncached_engine_tolerance_fails_a_wrong_t_first(
     _, want = reference_engine('amplified', 'uncached')
     step = TEngine._step
 
-    def other_slot(self, pol, guided, t, t_prev, active, guidance, key,
+    def other_slot(self, sh, pol, guided, t, t_prev, active, guidance, key,
                    t_first):
-        return step(self, pol, guided, t, t_prev, active, guidance, key,
+        return step(self, sh, pol, guided, t, t_prev, active, guidance, key,
                     int(t[1]))
     monkeypatch.setattr(TEngine, '_step', other_slot)
     kw, seq, late = RUNS['uncached']

@@ -71,6 +71,14 @@ TRAINING_MODULES = [
     'src/repro_torch/launch/train.py',
 ]
 
+# the sharded serving path's modules: the serving mesh, the bucket router
+# and the resize ledger
+MESH_SERVING_MODULES = [
+    'src/repro_torch/launch/mesh.py',
+    'src/repro_torch/serving/batcher.py',
+    'src/repro_torch/serving/metrics.py',
+]
+
 
 def _imported_modules(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
@@ -90,7 +98,7 @@ def test_source_never_imports_jax_or_the_reference(source):
 
 @pytest.mark.parametrize('source', SERVING_FEATURE_MODULES
                          + SERVING_CLI_MODULES + LM_FAMILY_MODULES
-                         + TRAINING_MODULES)
+                         + TRAINING_MODULES + MESH_SERVING_MODULES)
 def test_serving_feature_modules_are_covered(source):
     assert source in SOURCES
     mods = {m.split('.')[0] for m in _imported_modules(ROOT / source)}
@@ -109,6 +117,7 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     modules = sorted(
         'repro_torch.' + '.'.join(p.relative_to(PORT).with_suffix('').parts)
         for p in PORT.rglob('*.py'))
+    assert 'repro_torch.launch.mesh' in modules
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"

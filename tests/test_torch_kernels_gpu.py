@@ -268,3 +268,45 @@ def test_flash_attention_bshd_at_the_granite_prefill(cuda):
     out = tops.flash_attention_bshd(q, k, v, causal=True)
     ref = tfa.flash_attention_bshd_plain(q, k, v, causal=True)
     _flash_check(out, ref, q.dtype)
+
+
+@pytest.fixture
+def last_card():
+    """The last of two or more cards, or a skip."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip('needs two CUDA GPUs')
+    return torch.device('cuda', torch.cuda.device_count() - 1)
+
+
+def test_kernels_launch_on_the_tensors_card(last_card):
+    """With cuda:0 current, each kernel called on tensors on the last card
+    launches there (its shared-memory limit raised on that card, not only
+    on the first) and matches its plain version on the same inputs."""
+    dev = last_card
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with torch.cuda.device(0):
+        assert torch.cuda.current_device() == 0
+        before = tops.launch_counts()
+        x = torch.randn((4, 64, 64, 340), device=dev, generator=gen)
+        sc = torch.randn(340, device=dev, generator=gen)
+        bi = torch.randn(340, device=dev, generator=gen)
+        gn = tops.fused_gn_swish(x, sc, bi, groups=20)
+        a = torch.randn((4096, 680), device=dev, generator=gen)
+        w = torch.randn((680, 680), device=dev, generator=gen)
+        mm = tops.w8a8_matmul(a, w)
+        small = tops.w8a8_matmul(a[:4], w)          # the split-K path
+        q, k, v = (torch.randn((6, 1000, 128), device=dev, generator=gen)
+                   for _ in range(3))
+        fa = tfa.flash_attention_kernel(q, k, v, causal=True)
+        torch.cuda.synchronize(dev)
+        assert torch.cuda.current_device() == 0
+    after = tops.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        'fused_gn_swish': 1, 'w8a8_matmul': 2, 'flash_attention': 1}
+    assert all(t.device == dev for t in (gn, mm, small, fa))
+    assert (gn - tgn.gn_swish_plain(x, sc, bi, 20)).abs().max().item() <= 1e-5
+    aq, wq = tq.quantize(a, axis=(1,)), tq.quantize_per_channel(w)
+    ref = tmm.w8a8_matmul_plain(aq.q, aq.scale, wq.q, wq.scale.reshape(1, 680))
+    assert torch.equal(mm, ref) and torch.equal(small, ref[:4])
+    ref = tfa.flash_attention_plain(q, k, v, causal=True)
+    assert (fa - ref).abs().max().item() <= 2e-5

@@ -313,9 +313,10 @@ def test_init_follows_reference_distributions_moe_and_ssm():
 
 
 def test_serve_main_runs_on_cpu_and_refuses_diffusion(capsys):
-    """Both branches of ``main`` serve on the CPU; what it refuses is the
-    reference's mesh and compile-cache flags, naming their ROADMAP
-    entries."""
+    """Both branches of ``main`` serve on the CPU, the diffusion branch
+    sharded too (the reference's mesh flags, served since ROADMAP item
+    6b's serving half); what it refuses is the reference's compile-cache
+    flags, naming their ROADMAP entry."""
     tserve.main(['--arch', 'internlm2-1.8b', '--preset', 'smoke',
                  '--device', 'cpu', '--prompt', '5', '--tokens', '3'])
     out = capsys.readouterr().out
@@ -324,8 +325,15 @@ def test_serve_main_runs_on_cpu_and_refuses_diffusion(capsys):
                  '--rate', '50', '--slots', '2', '--steps', '2'])
     out = capsys.readouterr().out
     assert '[serve] 2 done in' in out and '[frontier] fp32:' in out
-    for flag, item in (('--devices', 'item 6b'), ('--resize-to', 'item 6b'),
-                       ('--cache-dir', 'Also not ported')):
+    tserve.main(['--diffusion', '--device', 'cpu', '--requests', '2',
+                 '--rate', '50', '--steps', '2', '--devices', '2',
+                 '--resize-to', '1', '--resize-after', '1'])
+    out = capsys.readouterr().out
+    assert '[mesh] slot axis sharded over 2 devices' in out
+    assert '[elastic] 1 done -> resizing 2 -> 1 devices' in out
+    assert '[serve] 2 done in' in out
+    for flag, item in (('--cache-dir', 'Also not ported'),
+                       ('--cache-max-mb', 'Also not ported')):
         with pytest.raises(SystemExit):
             tserve.main(['--diffusion', '--device', 'cpu', flag, '2'])
         assert item in capsys.readouterr().err

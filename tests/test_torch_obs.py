@@ -372,7 +372,7 @@ def _serve_two(tpipe, overlap):
 def test_decode_overlap_surfaces_results_one_tick_later(tpipe):
     eng_off, off = _serve_two(tpipe, False)
     eng_on, on = _serve_two(tpipe, True)
-    assert eng_off._side is None and eng_on._side is None    # the CPU
+    assert not eng_off._sides and not eng_on._sides          # the CPU
     assert off == [[], [0], [1]]
     assert on == [[], [], [0], [1]]
     assert eng_on.metrics.overlapped_decodes == 1   # the last one: idle

@@ -201,9 +201,89 @@ def test_cli_writes_trace_log_and_exposition(capsys, tmp_path):
     assert 'repro_serving_latency_seconds{quantile="0.99"}' in prom
 
 
+@pytest.fixture(scope='module')
+def reference_cli_report():
+    """The reference CLI's function on the trace the mesh flag cases
+    replay (6 requests at 8 req/s, 4 steps, fp32), unsharded: its mesh
+    needs XLA's forced device count, which this process cannot set."""
+    engines = []
+
+    class Recorded(repro.serving.ContinuousBatchingEngine):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            engines.append(self)
+    with pytest.MonkeyPatch.context() as mp, \
+            jax.threefry_partitionable(True):
+        mp.setattr(repro.serving, 'ContinuousBatchingEngine', Recorded)
+        results = jserve.serve_diffusion(IMG, 4, 6, 8.0, 3,
+                                         precision='fp32', quality_probe=0)
+    return ({r.request_id: r for r in results},
+            engines[0].metrics.summary())
+
+
+# case: the mesh flags, and the [mesh] / [elastic] lines they print
+MESH_CASES = {
+    'devices': (['--devices', '2', '--slots-per-device', '1'],
+                ['[mesh] slot axis sharded over 2 devices (cpu, cpu): 2 '
+                 'slots (1/device), overlap_decode=True']),
+    'shrink': (['--devices', '4', '--resize-to', '2', '--resize-after', '2'],
+               ['[mesh] slot axis sharded over 4 devices',
+                '[elastic] 2 done -> resizing 4 -> 2 devices mid-replay',
+                '[elastic] rebuilt: 2 slots on 2 devices, ']),
+    'grow': (['--devices', '1', '--slots-per-device', '1', '--resize-to',
+              '3', '--resize-after', '1'],
+             ['[mesh] slot axis sharded over 1 devices (cpu): 1 slots',
+              '[elastic] 1 done -> resizing 1 -> 3 devices mid-replay',
+              '[elastic] rebuilt: 3 slots on 3 devices, ']),
+    'rounded_overlap_off': (['--devices', '2', '--overlap-decode', 'off'],
+                            ['[mesh] slot axis sharded over 2 devices (cpu, '
+                             'cpu): 4 slots (2/device), '
+                             'overlap_decode=False']),
+}
+
+
+@pytest.mark.parametrize('case', sorted(MESH_CASES))
+def test_cli_serves_the_mesh_flags(tpipe, reference_cli_report, capsys,
+                                   monkeypatch, case):
+    """The mesh flags on ``--device cpu`` (logical CPU shards, the port's
+    CLI serving the reference's weights): every request completes with
+    the image the reference CLI's function gives it, nothing is shed,
+    and the ``[mesh]`` and ``[elastic]`` lines report the layout, the
+    mid-replay resize and the straggler check."""
+    flags, lines = MESH_CASES[case]
+    monkeypatch.setattr(tserve, '_diffusion_pipe', lambda *a: tpipe)
+    runs = []
+    serve = tserve.serve_diffusion
+
+    def recorded(*a, **k):
+        runs.append(serve(*a, **k))
+        return runs[-1]
+    monkeypatch.setattr(tserve, 'serve_diffusion', recorded)
+    out = _main(capsys, *flags)
+    want, js = reference_cli_report
+    results, summary = runs[0]
+    got = {r.request_id: r for r in results}
+    assert sorted(got) == sorted(want) == list(range(6))
+    assert summary['completed'] == js['completed'] == 6.0
+    assert summary['shed'] == js['shed'] == 0.0
+    for rid, w in want.items():
+        np.testing.assert_allclose(got[rid].image, np.asarray(w.image),
+                                   atol=IMAGE_ATOL, err_msg=str(rid))
+    for line in lines + ['[mesh] stragglers: none detected',
+                         '[serve] 6 done in']:
+        assert line in out, (line, out)
+    assert ('[elastic]' in out) == ('--resize-to' in flags)
+    assert summary['devices'] == float(flags[flags.index('--resize-to') + 1]
+                                       if '--resize-to' in flags
+                                       else flags[1])
+
+
+def test_resize_needs_a_mesh(tpipe):
+    with pytest.raises(ValueError, match='resize_to resizes a mesh'):
+        tserve.serve_diffusion(IMG, 2, 2, 8.0, 2, resize_to=1, pipe=tpipe)
+
+
 @pytest.mark.parametrize('flag,item', [
-    ('--devices', 'item 6b'), ('--slots-per-device', 'item 6b'),
-    ('--resize-to', 'item 6b'), ('--resize-after', 'item 6b'),
     ('--cache-dir', 'Also not ported'), ('--cache-max-mb', 'Also not')])
 def test_cli_refuses_what_one_card_cannot_serve(capsys, flag, item):
     with pytest.raises(SystemExit) as exc:

@@ -115,7 +115,7 @@ def test_overlapped_decode_runs_on_a_second_stream(cuda):
     for dev, overlap in (('cuda', True), ('in order', False)):
         eng = ContinuousBatchingEngine(pipe, slots=2, quality_probe=0,
                                        overlap_decode=overlap)
-        assert (eng._side is not None) == overlap
+        assert (eng.device in eng._sides) == overlap
         for r in reqs:
             eng.submit(r, now=0.0)
         ticks = []
@@ -127,7 +127,7 @@ def test_overlapped_decode_runs_on_a_second_stream(cuda):
     assert surfaced['in order'] == [[], [0], [1]]
     assert surfaced['cuda'] == [[], [], [0], [1]]
     assert len(streams) == 4
-    side = engines['cuda']._side
+    side = engines['cuda']._sides[pipe.device]
     assert all(s == side for s in streams[:2])
     assert all(s != side for s in streams[2:])
     assert side != torch.cuda.default_stream(cuda)
