@@ -131,6 +131,38 @@ Phases, each printing its own lines:
    Poisson trace on a mesh of one, all completed; with two or more
    cards, (i) again over cuda:0 and cuda:1 (skipped, and said so, on
    one);
+13. DDPM (run right after phase 12, before phase 9), on a float
+   pipeline of its own (``DiffusionPipeline.init(0, SD_V1_4, VAE_512,
+   timesteps=DDPM_TIMESTEPS)`` and a ``VAEEncoder(VAE_512)`` from seed
+   0; phase 8's pipeline may hold pre-quantized weights, which take no
+   gradient).  (a) phase 4's tiny model on the card against the CPU
+   from one seed: ``generate(sampler='ddpm')`` at T = 16, fp32 guided
+   and w8a8 unguided, within ``FP32_ATOL`` / ``W8A8_ATOL``;
+   ``generate_deepcache`` at interval 1 against ``generate`` (within
+   ``DEEPCACHE_EQ_ATOL``) and at interval 2 card against CPU;
+   ``image_batch`` (``IMAGE_ATOL``), ``vae_encode`` mean and with a key,
+   and ``ddpm_loss`` with the gradient of every UNet parameter (17
+   GroupNorm+swish launches under the gradient, none zero); (b) the
+   GroupNorm+swish kernel's gradient at every GroupNorm shape of the SD
+   v1.4 UNet at batch 4 (phase 3's): ``GNSwish`` (kernel forward, plain
+   backward) against autograd through ``gn_swish_plain`` within
+   ``GN_GRAD_RTOL`` of the largest, and the time of forward plus
+   backward of each per evaluation; (c) DDPM sampling of SD v1.4 + VAE
+   512 at batch ``DDPM_BATCH`` over the ``DDPM_TIMESTEPS`` steps, fp32
+   guided at 7.5 over a random 77 x 768 context and w8a8 unconditional:
+   finite 512 x 512 x 3 images in [-1, 1], 45 GroupNorm+swish launches
+   per evaluation and under w8a8 64 W8A8 per unconditional one (128 per
+   conditional), wall, seconds a step and peak memory; (d) one
+   latent-diffusion gradient step at full width: ``image_batch(512, 3,
+   DDPM_TRAIN_BATCH)`` -> ``vae_encode`` with a key -> latents (4, 64,
+   64, 4) -> ``ddpm_loss`` of the fp32 UNet over a random (4, 77, 768)
+   context with ``launch.steps.train_params`` -> one step ``p - DDPM_LR
+   * g``: every gradient finite and non-zero, the GroupNorm scales and
+   biases included, the step lowering the loss at the same key on the
+   same batch, 45 GroupNorm+swish launches per loss forward and no W8A8
+   or flash launch; forward, backward and step seconds and peak memory.
+   The phase's model is freed before phase 9 (the allocated memory
+   printed);
 9. LM families: every earlier model freed (the allocated memory printed
    first), Granite-MoE-1B-A400M, DeepSeek-V2-Lite-16B and Mamba2-2.7B in
    turn at full width and depth, each with phase 7's check (w8a8: within
@@ -161,10 +193,11 @@ Phases, each printing its own lines:
    on step 0's batch from the initial state lowering that batch's loss.
    It prints the parameter count, the first and the steady step's
    seconds, tokens/s, model FLOPs a step and their share of the float32
-   peak, and the peak memory.  Training runs no kernel of ``kernels/``
-   (the reference's loss takes the float projections and ``gqa_core``,
-   and neither package has a backward kernel): the counters must stay 0
-   across every train step.
+   peak, and the peak memory.  LM training runs no kernel of
+   ``kernels/`` (the reference's loss takes the float projections and
+   ``gqa_core``; the W8A8 and flash wrappers refuse a gradient, which
+   they have no backward for): the counters must stay 0 across every
+   train step.
 
 Every phase prints its seconds (``[time]``).
 
@@ -178,9 +211,11 @@ largest over the batch-4 and the batch-``MESH_SPD`` shapes; for
 path shape), with ``passes`` (TF32 products per float32 product) and
 ``bound_f32_ms`` (the float32 CUDA-core bound) beside them.
 ``launches`` is each kernel's count over the runs of phases 5, 5b, 7, 8,
-12, 9 and 10 (phase 12's sharded runs only: a tick over two shards
-launches each kernel's plan twice), each read from counters set to 0
-just before its run (phase 11's runs launch none, which it checks).
+12, 13, 9 and 10 (phase 12's sharded runs only: a tick over two shards
+launches each kernel's plan twice; phase 13's sampling runs (c) and its
+gradient step (d), the loss before and after the step), each read from
+counters set to 0 just before its run (phase 11's runs launch none,
+which it checks).
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, and the run then exits non-zero with no result; so does a run
 without CUDA or without the repository beside this file.
@@ -188,6 +223,7 @@ without CUDA or without the repository beside this file.
 from __future__ import annotations
 
 import collections
+import copy
 import gc
 import json
 import math
@@ -275,6 +311,29 @@ LOUD_NOISE = dict(sigma_w_lsb=9.0, sigma_x_lsb=6.0, sigma_pd_lsb=15.0,
                   crosstalk_db_per_channel=2.0)
 LOUD_STEPS = 2
 WRONG_DRAW_MARGIN = 5
+
+# phase 13, DDPM.  (a) card against CPU on phase 4's tiny model:
+# generate_deepcache at interval 1 is generate (every step a refresh, the
+# full pass: the reference test's 1e-5); image_batch's bicubic weights
+# and two contractions in float32, summed in another order (the CPU
+# against the reference: 7.7e-7 at 17 px)
+DEEPCACHE_EQ_ATOL = 1e-5
+IMAGE_ATOL = 2e-6
+# (b) GNSwish's gradient (kernel forward, plain backward) against
+# autograd through gn_swish_plain: float32 sums over up to 69,632
+# elements a group and 16,384 positions a channel in other orders, from
+# forwards ~3e-6 apart; relative to the largest gradient
+GN_GRAD_RTOL = 1e-4
+# (c) full-width DDPM sampling: the reference's DiffusionPipeline.init
+# with timesteps=100 (1000 would take 10x the time for the same per-step
+# work), batch 2; (d) the gradient step at batch 4, one plain step
+# p - lr * g.  lr: a narrow SD-shaped UNet (base_ch 32 / 64, 16 px) on
+# the CPU lowered its loss at 1e-3 within 1e-5 of the first-order
+# prediction; the gradient's square norm grows with width (1.4, 3.2)
+DDPM_TIMESTEPS = 100
+DDPM_BATCH = 2
+DDPM_TRAIN_BATCH = 4
+DDPM_LR = 1e-3
 
 LM_ARCH = 'internlm2-1.8b'
 LM_BATCH, LM_PROMPT, LM_TOKENS = 4, 1000, 32
@@ -892,14 +951,8 @@ def serve(engine, reqs):
 def phase_small(torch, numpy):
     """Phase 4: the same tiny requests on the card and on the CPU."""
     from repro_torch.diffusion.pipeline import DiffusionPipeline
-    from repro_torch.models.autoencoder import VAEConfig
-    from repro_torch.models.unet import UNetConfig
     from repro_torch.serving import ContinuousBatchingEngine, GenerationRequest
-    cfg = UNetConfig('tiny-sd', img_size=8, in_ch=4, base_ch=32,
-                     ch_mults=(1, 2), n_res_blocks=1, attn_resolutions=(4,),
-                     n_heads=4, context_dim=16, timesteps=16, latent=True)
-    vae = VAEConfig(img_size=16, in_ch=3, z_ch=4, base_ch=16,
-                    ch_mults=(1, 2), groups=8)
+    cfg, vae = tiny_sd()
     cpu = DiffusionPipeline.init(1, cfg, vae, device='cpu')
     ctx = torch.randn((1, 5, 16), generator=torch.Generator().manual_seed(2))
     ctx = ctx.repeat(3, 1, 1)
@@ -2293,6 +2346,349 @@ def train_full(torch, ops, card):
     torch.cuda.empty_cache()
 
 
+def tiny_sd():
+    """Phase 4's tiny SD-shaped model: its UNet and VAE configs."""
+    from repro_torch.models.autoencoder import VAEConfig
+    from repro_torch.models.unet import UNetConfig
+    return (UNetConfig('tiny-sd', img_size=8, in_ch=4, base_ch=32,
+                       ch_mults=(1, 2), n_res_blocks=1, attn_resolutions=(4,),
+                       n_heads=4, context_dim=16, timesteps=16, latent=True),
+            VAEConfig(img_size=16, in_ch=3, z_ch=4, base_ch=16,
+                      ch_mults=(1, 2), groups=8))
+
+
+def unet_apply(unet, x, t, context):
+    """``ddpm_loss``'s ``unet_apply_fn``: the UNet's fp32 forward."""
+    return unet(x, t, context)
+
+
+def max_err(a, b) -> float:
+    return float((a.detach().cpu() - b.detach().cpu()).abs().max())
+
+
+def phase_ddpm(torch, numpy, ops, card, checked):
+    """Phase 13: the DDPM path and the latent-diffusion gradient step
+    (``ddpm_small``, ``ddpm_gn_grad``, ``ddpm_sample_full``,
+    ``ddpm_step_full``).  Returns the launches of (c) and (d)."""
+    from repro_torch.configs.diffusion import SD_V1_4, VAE_512
+    from repro_torch.diffusion.pipeline import DiffusionPipeline
+    from repro_torch.models import layers as L
+    from repro_torch.models.autoencoder import VAEEncoder
+    ddpm_small(torch, numpy, ops)
+    t0 = time.perf_counter()
+    pipe = DiffusionPipeline.init(0, SD_V1_4, VAE_512,
+                                  timesteps=DDPM_TIMESTEPS, device='cuda')
+    enc = VAEEncoder(VAE_512)
+    L.init_params(enc, torch.Generator().manual_seed(0))
+    enc = enc.to('cuda').eval()
+    print(f'[ddpm] SD v1.4 + VAE 512 decoder and a VAE 512 encoder from '
+          f'seed 0 in {time.perf_counter() - t0:.1f} s; schedule of '
+          f'{pipe.sched.T} steps')
+    ddpm_gn_grad(torch, ops, pipe, checked)
+    launches = collections.Counter(
+        ddpm_sample_full(torch, numpy, ops, card, pipe))
+    launches.update(ddpm_step_full(torch, ops, card, pipe, enc))
+    del pipe, enc
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f'[ddpm] {torch.cuda.memory_allocated() / 2**30:.2f} GiB '
+          'allocated on the card after the phase')
+    return launches
+
+
+def ddpm_small(torch, numpy, ops):
+    """(a) Phase 4's tiny model on the card against the CPU, from one
+    seed: DDPM sampling at T = 16 (fp32 guided, w8a8 unguided),
+    ``generate_deepcache`` (interval 1 against ``generate``, interval 2
+    card against CPU), ``image_batch``, ``vae_encode`` (mean and with a
+    key) and ``ddpm_loss`` with the gradient of every UNet parameter."""
+    from repro_torch.core import prng
+    from repro_torch.data.pipeline import ImagePipelineConfig, image_batch
+    from repro_torch.diffusion.pipeline import DiffusionPipeline
+    from repro_torch.launch.steps import train_params
+    from repro_torch.models import layers as L
+    from repro_torch.models.autoencoder import VAEEncoder, vae_encode
+    from repro_torch.diffusion.schedule import ddpm_loss
+    cfg, vae = tiny_sd()
+    cpu = DiffusionPipeline.init(1, cfg, vae, device='cpu')
+    pipes = {'cuda': cpu.to('cuda'), 'cpu': cpu}
+    ctx = torch.randn((2, 5, 16), generator=torch.Generator().manual_seed(2))
+
+    def both(what, fn, tol):
+        out = {dev: fn(dev, p) for dev, p in pipes.items()}
+        a, b = out['cuda'], out['cpu']
+        check(tuple(a.shape) == tuple(b.shape)
+              and bool(torch.isfinite(a).all()),
+              f'small {what}: bad output {tuple(a.shape)}')
+        err = max_err(a, b)
+        print(f'[ddpm-small] {what}: card vs CPU max abs err {err:.3e} '
+              f'(tol {tol})')
+        check(err <= tol, f'small {what}: card vs CPU {err} > {tol}')
+        return out
+
+    both(f'generate(sampler=ddpm) T={cfg.timesteps} fp32 guided '
+         f'{GUIDANCE}', lambda d, p: p.generate(
+             13, batch=2, sampler='ddpm', context=ctx.to(d),
+             guidance=GUIDANCE), FP32_ATOL)
+    both(f'generate(sampler=ddpm) T={cfg.timesteps} w8a8 unguided',
+         lambda d, p: p.generate(14, batch=2, sampler='ddpm',
+                                 policy='w8a8'), W8A8_ATOL)
+    gpu = pipes['cuda']
+    a = gpu.generate(15, batch=2, steps=4, context=ctx.cuda())
+    b = gpu.generate_deepcache(15, batch=2, steps=4, interval=1,
+                               context=ctx.cuda())
+    err = max_err(a, b)
+    print(f'[ddpm-small] generate_deepcache interval 1 vs generate on the '
+          f'card: max abs err {err:.3e} (tol {DEEPCACHE_EQ_ATOL})')
+    check(err <= DEEPCACHE_EQ_ATOL, f'generate_deepcache(interval=1) is '
+          f'{err} from generate')
+    both('generate_deepcache interval 2', lambda d, p: p.generate_deepcache(
+        15, batch=2, steps=4, interval=2, context=ctx.to(d)), FP32_ATOL)
+    icfg = ImagePipelineConfig(vae.img_size, vae.in_ch, 2, seed=0)
+    imgs = both('image_batch', lambda d, p: image_batch(icfg, 0, device=d),
+                IMAGE_ATOL)
+    enc_cpu = VAEEncoder(vae)
+    L.init_params(enc_cpu, torch.Generator().manual_seed(1))
+    encs = {'cpu': enc_cpu, 'cuda': copy.deepcopy(enc_cpu).cuda()}
+    with torch.no_grad():
+        both('vae_encode mean', lambda d, p: vae_encode(encs[d], imgs[d]),
+             FP32_ATOL)
+        x0 = both('vae_encode with a key', lambda d, p: vae_encode(
+            encs[d], imgs[d], prng.PRNGKey(4)), FP32_ATOL)
+    grads = {}
+
+    def loss_fn(dev, p):
+        unet = copy.deepcopy(p.unet)
+        params = train_params(unet)
+        loss = ddpm_loss(unet_apply, p.sched, unet, x0[dev], prng.PRNGKey(5),
+                         ctx.to(dev))
+        grads[dev] = dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
+        return loss.detach().reshape(1)
+
+    before = ops.launch_counts()['fused_gn_swish']
+    both('ddpm_loss', loss_fn, FP32_ATOL)
+    check(ops.launch_counts()['fused_gn_swish'] - before == 17,
+          'small ddpm_loss: GroupNorm+swish launches on the card != 17')
+    errs = {n: max_err(grads['cuda'][n], g) for n, g in grads['cpu'].items()}
+    worst = max(errs, key=errs.get)
+    zero = [n for n, g in grads['cuda'].items() if float(g.abs().max()) == 0]
+    print(f'[ddpm-small] ddpm_loss gradient of {len(errs)} UNet parameters: '
+          f'card vs CPU max abs err {errs[worst]:.3e} ({worst}; tol '
+          f'{FP32_ATOL}); zero gradients: {zero}')
+    check(errs[worst] <= FP32_ATOL and not zero,
+          f'small ddpm_loss gradients: {worst} {errs[worst]}, zero {zero}')
+
+
+def ddpm_gn_grad(torch, ops, pipe, checked):
+    """(b) The GroupNorm+swish kernel's gradient at every GroupNorm shape
+    of the SD v1.4 UNet at batch ``SLOTS`` (phase 3's): ``GNSwish``'s
+    (dx, dscale, dbias) against autograd through ``gn_swish_plain`` on
+    the same card inputs, within ``GN_GRAD_RTOL`` of the largest, and
+    the time of forward plus backward of each per UNet evaluation, with
+    the host (``time_ms``) and without (``graph_ms``), beside the bound
+    (x and the output's gradient read once, dx written once)."""
+    from repro_torch.kernels import fused_gn_swish as gnk
+    cfg = pipe.unet_cfg
+    x = torch.randn((SLOTS, cfg.img_size, cfg.img_size, cfg.in_ch),
+                    device='cuda')
+    t = torch.full((SLOTS,), 50, device='cuda')
+    ctx = torch.randn((SLOTS, 77, cfg.context_dim), device='cuda')
+    with torch.no_grad():
+        shapes = record_shapes(ops, lambda: pipe.unet(x, t, ctx))
+    shapes = shapes['fused_gn_swish']
+    check(set(shapes) == checked[SLOTS]['fused_gn_swish']
+          and sum(shapes.values()) == 45,
+          f'GroupNorm shapes at batch {SLOTS} differ from phase 3\'s')
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    tot = dict.fromkeys(('function_ms', 'plain_ms', 'function_device_ms',
+                         'plain_device_ms', 'bound_ms'), 0.0)
+    worst = 0.0
+    for shape, count in sorted(shapes.items()):
+        N, H, W, C, g = shape
+        xg = torch.randn((N, H, W, C), device='cuda', generator=gen)
+        sc = torch.randn(C, device='cuda', generator=gen)
+        bi = torch.randn(C, device='cuda', generator=gen)
+        dout = torch.randn((N, H, W, C), device='cuda', generator=gen)
+        ins = [v.clone().requires_grad_() for v in (xg, sc, bi)]
+
+        def function():
+            return torch.autograd.grad(
+                ops.fused_gn_swish(*ins, groups=g), ins, dout)
+
+        def plain():
+            return torch.autograd.grad(gnk.gn_swish_plain(*ins, g), ins,
+                                       dout)
+        errs = []
+        for got, want in zip(function(), plain()):
+            errs.append(max_err(got, want)
+                        / max(float(want.abs().max()), 1e-30))
+        worst = max(worst, max(errs))
+        check(max(errs) <= GN_GRAD_RTOL, f'GNSwish gradient at {shape}: '
+              f'relative err {errs} > {GN_GRAD_RTOL}')
+        # inputs x, dout (and the vectors) read once, dx written once
+        nbytes = 3 * N * H * W * C * 4 + 5 * C * 4
+        row = {'function_ms': time_ms(torch, function),
+               'plain_ms': time_ms(torch, plain),
+               'function_device_ms': graph_ms(torch, function),
+               'plain_device_ms': graph_ms(torch, plain),
+               'bound_ms': nbytes / HBM_BYTES_PER_S * 1e3}
+        for k in tot:
+            tot[k] += count * row[k]
+        print('[ddpm-grad] shape ' + json.dumps(
+            {'shape': list(shape), 'per_eval': count,
+             'rel_err_dx_dscale_dbias': errs, **row}))
+    print(f'[ddpm-grad] GroupNorm+swish forward + backward per SD v1.4 '
+          f'evaluation at batch {SLOTS} (45 calls): GNSwish (kernel '
+          f'forward, plain backward) {tot["function_ms"]:.3f} ms (device '
+          f'{tot["function_device_ms"]:.3f}), plain forward + autograd '
+          f'{tot["plain_ms"]:.3f} ms (device {tot["plain_device_ms"]:.3f});'
+          f' bound {tot["bound_ms"]:.3f} ms (bytes); largest relative err '
+          f'{worst:.3e} (tol {GN_GRAD_RTOL})')
+
+
+def ddpm_sample_full(torch, numpy, ops, card, pipe):
+    """(c) DDPM ancestral sampling of SD v1.4 + VAE 512 at batch
+    ``DDPM_BATCH`` over all ``DDPM_TIMESTEPS`` steps: fp32 guided at
+    ``GUIDANCE`` over a random 77 x 768 context, then w8a8 unconditional;
+    finite 512 x 512 x 3 images in [-1, 1] and launches held to the plan
+    per evaluation (45 GroupNorm+swish; under w8a8 128 W8A8 conditional,
+    64 unconditional)."""
+    ctx = torch.randn((DDPM_BATCH, 77, pipe.unet_cfg.context_dim),
+                      generator=torch.Generator().manual_seed(3)).cuda()
+    launches = collections.Counter()
+    for policy, context, guidance, seed in (('fp32', ctx, GUIDANCE, 30),
+                                            ('w8a8', None, 0.0, 31)):
+        evals = collections.Counter()
+
+        def count_eval(module, args, kwargs):
+            evals[(args + (None,) * 4)[2] is None] += 1
+
+        hook = pipe.unet.register_forward_pre_hook(count_eval,
+                                                   with_kwargs=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()            # the main path's run starts here
+        t0 = time.perf_counter()
+        try:
+            img = pipe.generate(seed, batch=DDPM_BATCH, sampler='ddpm',
+                                context=context, guidance=guidance,
+                                policy=policy)
+            torch.cuda.synchronize()
+        finally:
+            hook.remove()
+        wall = time.perf_counter() - t0
+        run = ops.launch_counts()       # ... and ends here
+        launches.update(run)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n_eval = sum(evals.values())
+        want = {'fused_gn_swish': 45 * n_eval,
+                'w8a8_matmul': 0 if policy == 'fp32' else
+                128 * evals[False] + 64 * evals[True],
+                'flash_attention': 0}
+        steps = pipe.sched.T
+        print(f'[ddpm] {card}: SD v1.4 + VAE 512 DDPM {policy} guidance '
+              f'{guidance} batch {DDPM_BATCH}, {steps} steps: wall '
+              f'{wall:.3f} s, {wall / steps:.4f} s a step, UNet evaluations '
+              f'(unconditional: count) {dict(evals)}, launches {run} '
+              f'(expected {want}), peak memory {peak:.2f} GiB')
+        check(n_eval == steps * (2 if guidance > 0 else 1),
+              f'DDPM {policy}: {n_eval} UNet evaluations for {steps} steps')
+        check(dict(run) == want, f'DDPM {policy}: launches {run}, '
+              f'expected {want}')
+        a = img.cpu().numpy()
+        check(a.shape == (DDPM_BATCH, 512, 512, 3) and numpy.isfinite(a).all()
+              and a.min() >= -1.0 and a.max() <= 1.0,
+              f'DDPM {policy}: images {a.shape} not finite 512x512x3 in '
+              '[-1, 1]')
+    return launches
+
+
+def ddpm_step_full(torch, ops, card, pipe, enc):
+    """(d) One latent-diffusion gradient step at full SD v1.4 width:
+    ``image_batch`` (4 x 512 x 512 x 3) -> ``vae_encode`` with a key ->
+    latents (4, 64, 64, 4) -> ``ddpm_loss`` of the fp32 UNet over a
+    random (4, 77, 768) context (45 GroupNorm+swish launches through
+    ``GNSwish``, no W8A8 or flash launch) -> the gradient of every
+    parameter of ``train_params`` -> one step ``p - DDPM_LR * g``.
+    Checks: every gradient finite and non-zero (every parameter feeds the
+    output under a context), and the step lowers ``ddpm_loss`` at the
+    same key on the same batch."""
+    from repro_torch.core import prng
+    from repro_torch.data.pipeline import ImagePipelineConfig, image_batch
+    from repro_torch.diffusion.schedule import ddpm_loss
+    from repro_torch.launch.steps import train_params
+    from repro_torch.models.autoencoder import vae_encode
+    t0 = time.perf_counter()
+    imgs = image_batch(ImagePipelineConfig(512, 3, DDPM_TRAIN_BATCH, seed=0),
+                       0, device='cuda')
+    with torch.no_grad():
+        x0 = vae_encode(enc, imgs, prng.PRNGKey(7))
+    torch.cuda.synchronize()
+    check(tuple(x0.shape) == (DDPM_TRAIN_BATCH, 64, 64, 4)
+          and bool(torch.isfinite(x0).all()),
+          f'latents {tuple(x0.shape)} not finite (4, 64, 64, 4)')
+    print(f'[ddpm-train] image_batch {tuple(imgs.shape)} -> vae_encode with '
+          f'a key -> latents {tuple(x0.shape)} (std {x0.std().item():.4f}) '
+          f'in {time.perf_counter() - t0:.3f} s')
+    del imgs
+    ctx = torch.randn((DDPM_TRAIN_BATCH, 77, pipe.unet_cfg.context_dim),
+                      generator=torch.Generator().manual_seed(4)).cuda()
+    unet = pipe.unet
+    params = train_params(unet)
+    key = prng.PRNGKey(8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()                # the main path's run starts here
+    t0 = time.perf_counter()
+    loss = ddpm_loss(unet_apply, pipe.sched, unet, x0, key, ctx)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fwd = ops.launch_counts()
+    grads = torch.autograd.grad(loss, list(params.values()))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    with torch.no_grad():
+        for p, g in zip(params.values(), grads):
+            p.sub_(DDPM_LR * g)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with torch.no_grad():
+        after = ddpm_loss(unet_apply, pipe.sched, unet, x0, key, ctx).item()
+    launches = ops.launch_counts()      # ... and ends here
+    before = loss.item()
+    sq = [float(g.square().sum()) for g in grads]
+    bad = [n for n, g in zip(params, grads)
+           if not bool(torch.isfinite(g).all()) or float(g.abs().max()) == 0]
+    gn = [n for n in params if n.endswith(('gn1.scale', 'gn1.bias',
+                                           'gn2.scale', 'gn2.bias'))
+          or n.startswith('gn_out.')]
+    n_params = sum(p.numel() for p in params.values())
+    print(f'[ddpm-train] {card}: SD v1.4 ({n_params:,} parameters, '
+          f'{len(params)} tensors) ddpm_loss at batch '
+          f'{DDPM_TRAIN_BATCH} x 64 x 64 x 4, fp32 (TF32 off): forward '
+          f'{t1 - t0:.3f} s, backward {t2 - t1:.3f} s, step {t3 - t2:.3f} s; '
+          f'peak memory {peak:.2f} GiB; loss {before:.6f} -> {after:.6f} '
+          f'after one step at lr {DDPM_LR} (first order: '
+          f'{before - DDPM_LR * sum(sq):.6f}); grad norm '
+          f'{math.sqrt(sum(sq)):.4f}; launches in the forward {fwd}, in '
+          f'the run {launches}; {len(gn)} GroupNorm+swish parameters')
+    check(not bad, f'gradients not finite or zero: {bad[:8]}')
+    check(len(gn) == 2 * 44 + 2, f'{len(gn)} GroupNorm+swish parameters')
+    check(fwd == {'fused_gn_swish': 45, 'w8a8_matmul': 0,
+                  'flash_attention': 0}, f'loss forward launches {fwd}')
+    check(launches['fused_gn_swish'] == 90 and launches['w8a8_matmul'] == 0
+          and launches['flash_attention'] == 0,
+          f'gradient step launches {launches}')
+    check(after < before, f'the step did not lower ddpm_loss: {before} -> '
+          f'{after}')
+    for p in params.values():
+        p.requires_grad_(False)
+    del loss, grads, params, x0, ctx
+    return launches
+
+
 def main() -> int:
     import numpy
     import torch
@@ -2426,6 +2822,13 @@ def main() -> int:
     del serve_pipe
     torch.cuda.empty_cache()
     lap('12 (slot-sharded serving)')
+
+    # phase 13: DDPM sampling and the latent-diffusion gradient step, on a
+    # float pipeline of its own
+    ddpm_launches = phase_ddpm(torch, numpy, ops, card, checked)
+    print(f'[ddpm] DDPM path launches: {dict(ddpm_launches)}')
+    launches.update(ddpm_launches)
+    lap('13 (DDPM)')
 
     # phase 9: the MoE, MLA and SSM families at full width, every earlier
     # model freed

@@ -7,8 +7,11 @@ key paths (``down.1.blocks.0.attn.wq.w``) are the port modules'
 * conv kernels are HWIO ``(kh, kw, in, out)`` in the reference and OIHW
   in the port: every 4-D array is transposed by ``(3, 2, 0, 1)``;
 * a pre-quantized weight is a ``QTensor`` (an object with ``q`` and
-  ``scale``); the matching ``Linear`` is switched to its quantized form
-  first, and the two arrays load as ``<path>.q`` / ``<path>.scale``.
+  ``scale``); the matching parameter (a ``Linear``'s ``w``, the MoE
+  experts' ``w_gate`` / ``w_up`` / ``w_down``, any weight
+  ``quantization.quantize_params`` quantizes) is switched to its
+  ``QWeight`` first, and the two arrays load as ``<path>.q`` /
+  ``<path>.scale`` (a 4-D pair transposed as a conv kernel).
 
 Leaves may be numpy arrays or anything ``numpy.asarray`` accepts.  The
 load is strict: a missing or unexpected key raises.
@@ -155,14 +158,16 @@ def _load_flat(module: nn.Module, flat: Dict[str, Any]) -> nn.Module:
     state: Dict[str, torch.Tensor] = {}
     for key, leaf in flat.items():
         if _is_qtensor(leaf):
-            owner = module.get_submodule(key.rsplit('.', 1)[0])
-            if not isinstance(owner, L.Linear):
-                raise ValueError(f'{key}: a QTensor leaf must be a Linear '
-                                 'weight')
-            if not isinstance(owner.w, L.QWeight):
-                owner.quantize_()
-            state[f'{key}.q'] = torch.from_numpy(np.array(leaf.q))
-            state[f'{key}.scale'] = torch.from_numpy(np.array(leaf.scale))
+            owner_name, _, attr = key.rpartition('.')
+            owner = module.get_submodule(owner_name)
+            if not isinstance(getattr(owner, attr, None),
+                              (nn.Parameter, L.QWeight)):
+                raise ValueError(f'{key}: a QTensor leaf must be a weight '
+                                 'parameter of the module')
+            if not isinstance(getattr(owner, attr), L.QWeight):
+                L.quantize_weight_(owner, attr)
+            state[f'{key}.q'] = _tensor(leaf.q)
+            state[f'{key}.scale'] = _tensor(leaf.scale)
             continue
         state[key] = _tensor(leaf)
     module.load_state_dict(state, strict=True)

@@ -2,7 +2,8 @@
 semantics, in PyTorch.
 
 The port's counterpart of the ``jax.random`` calls the reference makes
-(``PRNGKey``, ``fold_in``, ``split``, ``bits``, ``uniform``, ``normal``),
+(``PRNGKey``, ``fold_in``, ``split``, ``bits``, ``uniform``, ``normal``,
+``randint``),
 so a seed or key gives the port the same draws it gives the reference:
 the same keys and bits exactly, and normals within ``NORMAL_RTOL``.
 
@@ -149,6 +150,34 @@ def uniform(key: Key, shape, minval: float = 0.0, maxval: float = 1.0,
     else:
         f = f.double().mul_(span).add_(lo).float()
     return f.clamp_min_(lo)
+
+
+_INT32_MIN, _INT32_MAX = -2 ** 31, 2 ** 31 - 1
+
+
+def randint(key: Key, shape, minval: int, maxval: int, *,
+            device) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` at int32, bit
+    for bit (``jax/_src/random.py::_randint``): 32 bits from each half of
+    ``split(key)`` (``hi``, ``lo``), ``span = maxval - minval`` as a
+    uint32 (1 when ``maxval <= minval``), ``multiplier = (2**16 % span)**2
+    % span`` (the square wrapping at 2**32, as uint32), and the result
+    ``minval + ((hi % span) * multiplier + lo % span) % span`` in uint32
+    arithmetic that wraps.  ``minval`` and ``maxval`` are ints in the
+    int32 range.  An int32 tensor on ``device``."""
+    if not _INT32_MIN <= minval <= _INT32_MAX or \
+            not _INT32_MIN <= maxval <= _INT32_MAX:
+        raise ValueError(f'randint bounds ({minval}, {maxval}) must be int32')
+    k1, k2 = split(key)
+    hi = random_bits(k1, shape, device=device)
+    lo = random_bits(k2, shape, device=device)
+    span = 1 if maxval <= minval else (maxval - minval) & MASK
+    mult = (((2 ** 16 % span) ** 2) & MASK) % span
+    a = hi.remainder_(span)
+    # a * mult mod 2**32 without leaving int64: mult in 16-bit halves
+    prod = (a * (mult & 0xFFFF) + ((a * (mult >> 16)) & 0xFFFF) * 2 ** 16)
+    off = prod.add_(lo.remainder_(span)).bitwise_and_(MASK).remainder_(span)
+    return off.add_(minval).to(torch.int32)
 
 
 def erfinv(x: torch.Tensor) -> torch.Tensor:

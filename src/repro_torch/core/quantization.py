@@ -7,10 +7,12 @@ packages.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Optional, Tuple
 
 import torch
+import torch.nn as nn
 
 INT8_MAX = 127.0
 
@@ -29,6 +31,9 @@ class QTensor:
     @property
     def shape(self):
         return self.q.shape
+
+    def dequantize(self, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        return (self.q.float() * self.scale).to(dtype)
 
 
 def rounded(x: torch.Tensor, axis: Tuple[int, ...]):
@@ -54,3 +59,40 @@ def quantize(x: torch.Tensor,
 def quantize_per_channel(w: torch.Tensor) -> QTensor:
     """Weight ``(..., in, out)``: one scale per output channel."""
     return quantize(w, axis=(w.ndim - 2,))
+
+
+def fake_quantize(x: torch.Tensor, axis=None) -> torch.Tensor:
+    """Quantize-dequantize round trip in x's dtype (for QAT / error
+    measurement)."""
+    return quantize(x, axis=axis).dequantize(x.dtype)
+
+
+def quantization_error(x: torch.Tensor, axis=None) -> torch.Tensor:
+    """Relative L2 error of the W8A8 round trip (Table-I quality proxy),
+    a 0-d tensor."""
+    d = (x - fake_quantize(x, axis=axis)).reshape(-1)
+    return torch.linalg.vector_norm(d) / torch.clamp_min(
+        torch.linalg.vector_norm(x.reshape(-1)), 1e-12)
+
+
+#: the parameter names ``quantize_params`` quantizes (the reference's)
+MATMUL_WEIGHTS = ('w', 'w_gate', 'w_up', 'w_down')
+
+
+def quantize_params(module: nn.Module, min_size: int = 1 << 12) -> nn.Module:
+    """Serve-time weight quantization (paper C1), the reference's rule on
+    a copy of ``module``: every float32 or bfloat16 parameter named as in
+    ``MATMUL_WEIGHTS``, at least 2-D and of at least ``min_size``
+    elements, becomes a ``QWeight`` with per-output-channel scales
+    (``layers.quantize_weight_``); everything else (norms, biases,
+    embedding tables) stays float.  As in the reference, a conv kernel
+    (named ``w``) matches the rule too."""
+    from repro_torch.models.layers import quantize_weight_
+    out = copy.deepcopy(module)
+    for m in list(out.modules()):
+        for name, p in list(m.named_parameters(recurse=False)):
+            if (name in MATMUL_WEIGHTS and p.dim() >= 2
+                    and p.dtype in (torch.float32, torch.bfloat16)
+                    and p.numel() >= min_size):
+                quantize_weight_(m, name)
+    return out

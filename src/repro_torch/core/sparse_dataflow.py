@@ -96,3 +96,11 @@ def conv_transpose_sparse(x: torch.Tensor, kernel: torch.Tensor,
             out[:, py::s, px::s, :] = conv_nhwc(x, grid, (-oy0, oy1),
                                                 (-ox0, ox1))
     return out
+
+
+def zero_mac_fraction(kh: int, kw: int, stride: int) -> float:
+    """Fraction of baseline transposed-conv MACs that hit inserted zeros
+    (what the sparse dataflow saves): 1 - 1/s^2 for k >= s."""
+    dense = kh * kw
+    live = -(-kh // stride) * (-(-kw // stride))  # ceil(k/s)^2 on average
+    return 1.0 - live / dense

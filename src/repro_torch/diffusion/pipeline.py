@@ -1,5 +1,6 @@
 """End-to-end diffusion pipeline, port of ``repro/diffusion/pipeline.py``:
-noise -> DDIM denoising with the UNet -> VAE decode for latent models.
+noise -> DDIM or DDPM denoising with the UNet (or DDIM with DeepCache,
+``generate_deepcache``) -> VAE decode for latent models.
 
 The pipeline carries a default ``PrecisionPolicy`` and every entry point
 takes a per-call ``policy=`` override, so one pipeline serves requests at
@@ -22,6 +23,7 @@ import torch
 from repro_torch.core import prng
 from repro_torch.core.precision import PrecisionPolicy, resolve
 from repro_torch.diffusion import samplers
+from repro_torch.diffusion.deepcache import unet_apply_cached
 from repro_torch.diffusion.schedule import Schedule, linear_schedule
 from repro_torch.models import layers as L
 from repro_torch.models.autoencoder import VAEConfig, VAEDecoder
@@ -166,10 +168,43 @@ class DiffusionPipeline:
 
     @torch.no_grad()
     def generate(self, seed: int, batch: int = 1, steps: int = 50,
-                 context=None, guidance: float = 0.0,
+                 sampler: str = 'ddim', context=None, guidance: float = 0.0,
                  policy=None) -> torch.Tensor:
-        """Serve one batch of requests with DDIM; returns images (or
-        latents when there is no VAE), NHWC."""
-        x = initial_noise(seed, self.sample_shape(batch), self.device)
+        """Serve one batch of requests with DDIM over ``steps`` steps, or
+        with ``sampler='ddpm'`` ancestral sampling over all T steps of the
+        schedule (``steps`` unused), from ``PRNGKey(seed)``'s chain;
+        returns images (or latents when there is no VAE), NHWC."""
         eps = self._eps_fn(context, guidance, policy)
-        return self.decode(samplers.ddim_sample(self.sched, eps, x, steps))
+        shape = self.sample_shape(batch)
+        if sampler == 'ddpm':
+            z = samplers.ddpm_sample(self.sched, eps, shape,
+                                     prng.PRNGKey(seed), device=self.device)
+        else:
+            z = samplers.ddim_sample(self.sched, eps,
+                                     initial_noise(seed, shape, self.device),
+                                     steps)
+        return self.decode(z)
+
+    @torch.no_grad()
+    def generate_deepcache(self, seed: int, batch: int = 1, steps: int = 50,
+                           interval: int = 5, context=None,
+                           policy=None) -> torch.Tensor:
+        """DDIM with the DeepCache baseline: a full UNet pass every
+        ``interval`` steps refreshes the cache of deep features, the
+        passes between recompute only the shallow layers
+        (``deepcache.unet_apply_cached``).  With ``interval=1`` every step
+        refreshes, so the output is ``generate``'s.  ``policy`` overrides
+        the pipeline's precision for this call."""
+        pol = resolve(policy) if policy is not None else self.policy
+        ts = samplers.ddim_timesteps(self.sched, steps)
+        x = initial_noise(seed, self.sample_shape(batch), self.device)
+        cache = None
+        for i, t in enumerate(ts):
+            tb = torch.full((batch,), int(t), dtype=torch.long,
+                            device=self.device)
+            refresh = i % interval == 0 or cache is None
+            eps, cache = unet_apply_cached(self.unet, self.unet_cfg, x, tb,
+                                           cache, refresh, context, pol)
+            t_prev = int(ts[i + 1]) if i + 1 < steps else -1
+            x = samplers.ddim_step(self.sched, eps, x, int(t), t_prev)
+        return self.decode(x)

@@ -1,4 +1,9 @@
-"""DDIM sampling, port of the DDIM half of ``repro/diffusion/samplers.py``."""
+"""Reverse-process samplers, port of ``repro/diffusion/samplers.py``:
+DDPM ancestral sampling (paper Eq. 2) and DDIM.
+
+DDPM keeps the reference's key chain (``core/prng`` reproduces
+``jax.random``); a Python loop over the T steps replaces ``fori_loop``.
+"""
 from __future__ import annotations
 
 from typing import Callable, Union
@@ -6,11 +11,44 @@ from typing import Callable, Union
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.diffusion.schedule import Schedule
 
 # eps_fn(x_t, t_batch) -> predicted noise
 EpsFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 Steps = Union[int, np.ndarray, torch.Tensor]
+
+
+def ddpm_step(sched: Schedule, eps_fn: EpsFn, x_t: torch.Tensor, t: int,
+              key: prng.Key) -> torch.Tensor:
+    """One reverse step (Eq. 2): x_{t-1} = mu_theta(x_t, t) + sigma_t z.
+    ``z`` is drawn from ``key`` on x_t's device even at t = 0, where its
+    weight is 0, as in the reference."""
+    t = int(t)
+    B = x_t.shape[0]
+    eps = eps_fn(x_t, torch.full((B,), t, dtype=torch.long,
+                                 device=x_t.device))
+    beta = sched.betas[t]
+    alpha = sched.alphas[t]
+    ab = sched.alpha_bars[t]
+    mu = (x_t - beta / torch.sqrt(1.0 - ab) * eps) / torch.sqrt(alpha)
+    sigma = torch.sqrt(beta)
+    z = prng.normal(key, tuple(x_t.shape), device=x_t.device).to(x_t.dtype)
+    return mu + (sigma if t > 0 else 0.0) * z
+
+
+def ddpm_sample(sched: Schedule, eps_fn: EpsFn, shape, key: prng.Key, *,
+                device) -> torch.Tensor:
+    """Full T-step ancestral sampling from pure noise, the reference's key
+    chain: ``k0, kloop = split(key)``, ``x_T = normal(k0, shape)`` (drawn
+    on the CPU and moved to ``device``, as the pipeline's
+    ``initial_noise``), then per step ``kloop, ks = split(kloop)``."""
+    k0, kloop = prng.split(key)
+    x = prng.normal(k0, tuple(shape), device='cpu').to(device)
+    for i in range(sched.T):
+        kloop, ks = prng.split(kloop)
+        x = ddpm_step(sched, eps_fn, x, sched.T - 1 - i, ks)
+    return x
 
 
 def ddim_timesteps(sched: Schedule, steps: int) -> np.ndarray:

@@ -5,6 +5,12 @@ The kernel replaces ``repro/kernels/fused_gn_swish.py::
 fused_gn_swish_kernel``; the plain version repeats the reference's
 arithmetic (``repro/kernels/ref.py::gn_swish_ref``) and is what the CPU
 runs.  ``kernels/ops.py`` picks one by the tensor's device.
+
+The kernel writes its output through ``ctypes``, so autograd cannot see
+it.  ``GNSwish`` gives it a gradient: its forward launches the kernel,
+its backward is the plain ``gn_swish_backward_plain`` (the reference has
+no backward kernel either).  ``ops.fused_gn_swish`` routes a CUDA call
+through it only when a gradient is wanted.
 """
 from __future__ import annotations
 
@@ -37,6 +43,36 @@ def gn_swish_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     y = ((xf - mu) * torch.rsqrt(var + eps)).reshape(N, H, W, C)
     y = y * scale + bias
     return (y * torch.sigmoid(y)).to(x.dtype)
+
+
+def gn_swish_backward_plain(x: torch.Tensor, scale: torch.Tensor,
+                            bias: torch.Tensor, groups: int,
+                            grad_out: torch.Tensor, eps: float = 1e-5):
+    """The gradient of ``gn_swish_plain`` at ``x`` for the output gradient
+    ``grad_out``: ``(dx, dscale, dbias)``.  The group mean and rstd are
+    recomputed from ``x`` (nothing but the inputs is saved).  With
+    ``xhat`` the normalised input, ``y = xhat * scale + bias`` and ``dy``
+    the gradient through swish (``s + y s (1 - s)``, ``s = sigmoid(y)``),
+    ``dx = rstd (g - mean(g) - xhat mean(g xhat))`` over each (n, group),
+    ``g = dy * scale``."""
+    N, H, W, C = x.shape
+    cg = C // groups
+    xf = x.float().reshape(N, H * W, groups, cg)
+    mu = xf.mean(dim=(1, 3), keepdim=True)
+    xc = xf - mu
+    rstd = torch.rsqrt(xc.square().mean(dim=(1, 3), keepdim=True) + eps)
+    xhat = (xc * rstd).reshape(N, H * W, C)
+    y = xhat * scale + bias
+    s = torch.sigmoid(y)
+    dy = grad_out.float().reshape(N, H * W, C) * (s * (1 + y * (1 - s)))
+    dscale = (dy * xhat).sum(dim=(0, 1))
+    dbias = dy.sum(dim=(0, 1))
+    g = (dy * scale).reshape(N, H * W, groups, cg)
+    xhat = xhat.reshape(N, H * W, groups, cg)
+    dx = rstd * (g - g.mean(dim=(1, 3), keepdim=True)
+                 - xhat * (g * xhat).mean(dim=(1, 3), keepdim=True))
+    return (dx.reshape(N, H, W, C).to(x.dtype), dscale.to(scale.dtype),
+            dbias.to(bias.dtype))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,3 +147,24 @@ def fused_gn_swish_kernel(x: torch.Tensor, scale: torch.Tensor,
         raise RuntimeError(f'fused_gn_swish launch failed: CUDA error {err}')
     launches += 1
     return out
+
+
+class GNSwish(torch.autograd.Function):
+    """``fused_gn_swish_kernel`` with a gradient: the forward launches the
+    kernel (and counts as its launch), the backward runs
+    ``gn_swish_backward_plain`` from the saved ``x``, ``scale`` and
+    ``bias``.  ``GNSwish.apply(x, scale, bias, groups, eps)``."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, groups: int, eps: float = 1e-5):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.groups, ctx.eps = groups, eps
+        return fused_gn_swish_kernel(x, scale, bias, groups, eps)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, scale, bias = ctx.saved_tensors
+        grads = gn_swish_backward_plain(x, scale, bias, ctx.groups,
+                                        grad_out, ctx.eps)
+        return tuple(g if need else None for g, need in
+                     zip(grads, ctx.needs_input_grad)) + (None, None)

@@ -8,6 +8,12 @@ the tensor's device: a CUDA tensor always launches the hand-written
 kernel, a CPU tensor runs the plain PyTorch version, and any other
 device raises.  There is no switch and no fallback from one to the
 other.
+
+Gradients: the plain versions are differentiable.  On CUDA,
+``fused_gn_swish`` goes through ``GNSwish`` (the kernel forward, a plain
+backward) when a gradient is wanted; the W8A8 and flash kernels have no
+backward, so their wrappers raise when one is wanted rather than return
+an output that autograd cannot trace.
 """
 from __future__ import annotations
 
@@ -43,6 +49,18 @@ def _on_cuda(t: torch.Tensor, op: str) -> bool:
     raise ValueError(f'{op}: no kernel for device {t.device}')
 
 
+def _grad_wanted(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def _no_backward(op: str, *tensors) -> None:
+    if _grad_wanted(*tensors):
+        raise RuntimeError(
+            f'{op}: the CUDA kernel has no backward; call it under '
+            'torch.no_grad() or with inputs that do not require grad')
+
+
 def w8a8_matmul(x: torch.Tensor,
                 w: Union[torch.Tensor, QTensor]) -> torch.Tensor:
     """x (..., K) float, w (K, N) float or pre-quantized QTensor ->
@@ -55,6 +73,7 @@ def w8a8_matmul(x: torch.Tensor,
     K = x.shape[-1]
     x2 = x.reshape(-1, K)
     if _on_cuda(x, 'w8a8_matmul'):
+        _no_backward('w8a8_matmul', x, w)
         xq, xs = _mm.quantize_rows_padded(x2)
         if isinstance(w, QTensor):
             wt = w.kmajor if w.kmajor is not None else _mm.kmajor_weight(w.q)
@@ -75,12 +94,15 @@ def w8a8_matmul(x: torch.Tensor,
 
 def fused_gn_swish(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                    *, groups: int = 32) -> torch.Tensor:
-    """GroupNorm (largest ``g <= groups`` dividing C) then swish, NHWC."""
+    """GroupNorm (largest ``g <= groups`` dividing C) then swish, NHWC.
+    On CUDA under a wanted gradient the kernel runs inside ``GNSwish``."""
     C = x.shape[-1]
     g = min(groups, C)
     while C % g:
         g -= 1
     if _on_cuda(x, 'fused_gn_swish'):
+        if _grad_wanted(x, scale, bias):
+            return _gn.GNSwish.apply(x.contiguous(), scale, bias, g)
         return _gn.fused_gn_swish_kernel(x.contiguous(), scale, bias, g)
     return _gn.gn_swish_plain(x, scale, bias, g)
 
@@ -95,6 +117,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kf = k.reshape(B * H, T, d)
     vf = v.reshape(B * H, T, d)
     if _on_cuda(q, 'flash_attention'):
+        _no_backward('flash_attention', q, k, v)
         out = _fa.flash_attention_kernel(qf.contiguous(), kf.contiguous(),
                                          vf.contiguous(), causal=causal,
                                          scale=scale)
@@ -112,6 +135,7 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel reads every operand where it lies (a slice of the KV cache
     included): no head repeat, no transpose, no copy."""
     if _on_cuda(q, 'flash_attention'):
+        _no_backward('flash_attention_bshd', q, k, v)
         return _fa.flash_attention_bshd_kernel(q, k, v, causal=causal,
                                                scale=scale)
     return _fa.flash_attention_bshd_plain(q, k, v, causal=causal,

@@ -29,7 +29,8 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.core import prng
 from repro_torch.core.precision import PrecisionPolicy, resolve
-from repro_torch.core.quantization import QTensor, quantize_per_channel
+from repro_torch.core.quantization import (QTensor, quantize,
+                                           quantize_per_channel)
 from repro_torch.core.sparse_dataflow import (conv_nhwc,
                                               conv_transpose_dense,
                                               conv_transpose_sparse)
@@ -248,6 +249,17 @@ class QWeight(nn.Module):
         return QTensor(self.q, self.scale, c[2])
 
 
+def quantize_weight_(module: nn.Module, name: str) -> None:
+    """Replace the float parameter ``name`` of ``module`` by its
+    per-output-channel ``QWeight``: the reference's
+    ``quantize_per_channel``, whose scale reduces the input axis (axis 1
+    of a 4-D OIHW conv kernel, the reference's HWIO axis 2)."""
+    w = getattr(module, name).detach()
+    qt = quantize(w, axis=(1,)) if w.dim() == 4 else quantize_per_channel(w)
+    delattr(module, name)
+    setattr(module, name, QWeight(qt))
+
+
 class Linear(nn.Module):
     """``stddev`` set: the weight initialises normal with that stddev
     (the LM head), else fan-in uniform."""
@@ -265,9 +277,7 @@ class Linear(nn.Module):
 
     def quantize_(self) -> None:
         """Replace the float weight by its per-output-channel QTensor."""
-        qt = quantize_per_channel(self.w.detach())
-        del self.w
-        self.w = QWeight(qt)
+        quantize_weight_(self, 'w')
 
     def forward(self, x, policy=None, noise_key=None, first_sample=0):
         return linear(x, self.weight, self.b, policy, noise_key,

@@ -29,8 +29,11 @@ from repro_torch.models import layers as L
 
 
 def _wt(w, dtype: torch.dtype) -> torch.Tensor:
-    """Expert weight -> compute dtype, dequantizing a QTensor.  In the
-    weight's own dtype this is the weight itself, not a copy."""
+    """Expert weight -> compute dtype, dequantizing a QTensor (or a
+    ``QWeight``, as ``quantize_params`` leaves it).  In the weight's own
+    dtype this is the weight itself, not a copy."""
+    if isinstance(w, L.QWeight):
+        w = QTensor(w.q, w.scale)
     if isinstance(w, QTensor):
         return (w.q.float() * w.scale).to(dtype)
     return w.to(dtype)

@@ -80,6 +80,24 @@ MESH_SERVING_MODULES = [
 ]
 
 
+# the DDPM path and the rest of the diffusion side: the schedules and the
+# loss, the samplers, the pipeline's DDPM and DeepCache entries, the image
+# pipeline, the VAE encoder, the GroupNorm+swish gradient and the core
+# helpers (quantization, the sparse dataflow's saving, Eq. 6)
+DDPM_MODULES = [
+    'src/repro_torch/diffusion/schedule.py',
+    'src/repro_torch/diffusion/samplers.py',
+    'src/repro_torch/diffusion/pipeline.py',
+    'src/repro_torch/data/pipeline.py',
+    'src/repro_torch/models/autoencoder.py',
+    'src/repro_torch/kernels/fused_gn_swish.py',
+    'src/repro_torch/kernels/ops.py',
+    'src/repro_torch/core/quantization.py',
+    'src/repro_torch/core/sparse_dataflow.py',
+    'src/repro_torch/core/attention_decomp.py',
+]
+
+
 def _imported_modules(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -98,7 +116,8 @@ def test_source_never_imports_jax_or_the_reference(source):
 
 @pytest.mark.parametrize('source', SERVING_FEATURE_MODULES
                          + SERVING_CLI_MODULES + LM_FAMILY_MODULES
-                         + TRAINING_MODULES + MESH_SERVING_MODULES)
+                         + TRAINING_MODULES + MESH_SERVING_MODULES
+                         + DDPM_MODULES)
 def test_serving_feature_modules_are_covered(source):
     assert source in SOURCES
     mods = {m.split('.')[0] for m in _imported_modules(ROOT / source)}
@@ -118,6 +137,7 @@ def test_every_module_imports_with_jax_and_repro_blocked():
         'repro_torch.' + '.'.join(p.relative_to(PORT).with_suffix('').parts)
         for p in PORT.rglob('*.py'))
     assert 'repro_torch.launch.mesh' in modules
+    assert 'repro_torch.core.attention_decomp' in modules
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"

@@ -310,3 +310,125 @@ def test_kernels_launch_on_the_tensors_card(last_card):
     assert torch.equal(mm, ref) and torch.equal(small, ref[:4])
     ref = tfa.flash_attention_plain(q, k, v, causal=True)
     assert (fa - ref).abs().max().item() <= 2e-5
+
+
+# The GroupNorm+swish gradient: ``GNSwish`` (kernel forward, plain
+# backward) against autograd through ``gn_swish_plain`` on the same card
+# inputs, within 1e-4 of the largest gradient: both backwards are float32
+# sums over up to 69,632 elements a group and 16,384 positions a channel,
+# in other orders, from forwards ~3e-6 apart.
+GN_GRAD_RTOL = 1e-4
+
+
+@pytest.fixture
+def no_tf32(cuda):
+    """cuDNN convolutions in full float32 (its TF32 default would move a
+    card-vs-CPU comparison by ~1e-3)."""
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield cuda
+    torch.backends.cudnn.allow_tf32 = old
+
+
+@pytest.mark.parametrize('N,H,W,C,g', [(4, 64, 64, 340, 20),
+                                       (4, 16, 16, 1360, 20),
+                                       (3, 5, 7, 96, 6), (2, 8, 8, 64, 32)])
+def test_gn_swish_gradient_on_card(cuda, N, H, W, C, g):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((N, H, W, C), device=cuda, generator=gen) * 3 + 1
+    sc = torch.randn(C, device=cuda, generator=gen)
+    bi = torch.randn(C, device=cuda, generator=gen)
+    dout = torch.randn((N, H, W, C), device=cuda, generator=gen)
+    a = [t.clone().requires_grad_() for t in (x, sc, bi)]
+    b = [t.clone().requires_grad_() for t in (x, sc, bi)]
+    before = tops.launch_counts()['fused_gn_swish']
+    out = tops.fused_gn_swish(*a, groups=g)
+    assert out.grad_fn is not None
+    out.backward(dout)
+    tgn.gn_swish_plain(*b, g).backward(dout)
+    torch.cuda.synchronize()
+    assert tops.launch_counts()['fused_gn_swish'] == before + 1
+    for name, ta, tb in zip(('dx', 'dscale', 'dbias'), a, b):
+        tol = GN_GRAD_RTOL * tb.grad.abs().max().item()
+        assert (ta.grad - tb.grad).abs().max().item() <= tol, name
+
+
+def test_gn_swish_without_grad_launches_the_kernel_directly(cuda):
+    x = torch.randn((2, 8, 8, 64), device=cuda)
+    sc = torch.ones(64, device=cuda, requires_grad=True)
+    bi = torch.zeros(64, device=cuda, requires_grad=True)
+    with torch.no_grad():
+        assert tops.fused_gn_swish(x, sc, bi, groups=32).grad_fn is None
+    assert tops.fused_gn_swish(x, sc.detach(), bi.detach(),
+                               groups=32).grad_fn is None
+
+
+def test_ddpm_loss_backward_on_card_reaches_every_groupnorm(no_tf32):
+    """A tiny SD-shaped UNet's ``ddpm_loss`` on the card: its GroupNorm+
+    swish calls launch the kernel under the gradient, every GroupNorm
+    parameter they take gets a non-zero gradient, and every gradient
+    matches the CPU's from the same weights (1e-4, the fp32 card-vs-CPU
+    tolerance)."""
+    import copy
+    from repro_torch.core import prng
+    from repro_torch.diffusion.pipeline import DiffusionPipeline
+    from repro_torch.diffusion.schedule import ddpm_loss
+    from repro_torch.launch.steps import train_params
+    from repro_torch.models.unet import UNetConfig
+    cfg = UNetConfig('tiny-sdm', img_size=16, in_ch=4, base_ch=32,
+                     ch_mults=(1, 2), n_res_blocks=1, attn_resolutions=(8,),
+                     n_heads=4, timesteps=16, context_dim=8)
+    cpu = DiffusionPipeline.init(0, cfg, device='cpu')
+    gen = torch.Generator().manual_seed(1)
+    x0 = torch.randn((2, 16, 16, 4), generator=gen) * 0.5
+    ctx = torch.randn((2, 5, 8), generator=gen)
+    grads, losses = {}, {}
+    for dev in ('cpu', no_tf32):
+        unet = copy.deepcopy(cpu.unet).to(dev)
+        params = train_params(unet)
+        sched = cpu.to(dev).sched
+        before = tops.launch_counts()['fused_gn_swish']
+        loss = ddpm_loss(lambda m, x, t, c: m(x, t, c), sched, unet,
+                         x0.to(dev), prng.PRNGKey(3), ctx.to(dev))
+        loss.backward()
+        launched = tops.launch_counts()['fused_gn_swish'] - before
+        assert launched == (17 if dev != 'cpu' else 0)
+        losses[str(dev)] = loss.item()
+        grads[str(dev)] = {n: p.grad.cpu() for n, p in params.items()}
+    gpu = str(no_tf32)
+    gn = [n for n in grads[gpu] if n.endswith(('gn1.scale', 'gn1.bias',
+                                               'gn2.scale', 'gn2.bias'))
+          or n.startswith('gn_out.')]
+    assert len(gn) == 4 * 8 + 2
+    for n in gn:
+        assert grads[gpu][n].abs().max() > 0, n
+    assert abs(losses[gpu] - losses['cpu']) <= 1e-4
+    for n, g in grads['cpu'].items():
+        assert (grads[gpu][n] - g).abs().max().item() <= 1e-4, n
+
+
+def test_kernels_without_backward_refuse_a_gradient(cuda):
+    """The W8A8 and flash kernels have no backward: under a wanted
+    gradient their wrappers raise instead of returning an output autograd
+    cannot trace; under ``no_grad`` they launch as before."""
+    x = torch.randn((8, 64), device=cuda, requires_grad=True)
+    w = torch.randn((64, 32), device=cuda)
+    with pytest.raises(RuntimeError, match='no backward'):
+        tops.w8a8_matmul(x, w)
+    with pytest.raises(RuntimeError, match='no backward'):
+        tops.w8a8_matmul(x.detach(), w.requires_grad_())
+    q = torch.randn((1, 2, 64, 32), device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match='no backward'):
+        tops.flash_attention(q, q.detach(), q.detach(), causal=True)
+    qb = torch.randn((1, 64, 2, 32), device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match='no backward'):
+        tops.flash_attention_bshd(qb, qb.detach(), qb.detach(), causal=True)
+    before = tops.launch_counts()
+    with torch.no_grad():
+        tops.w8a8_matmul(x, w)
+        tops.flash_attention(q, q, q, causal=True)
+        tops.flash_attention_bshd(qb, qb, qb, causal=True)
+    torch.cuda.synchronize()
+    after = tops.launch_counts()
+    assert after['w8a8_matmul'] == before['w8a8_matmul'] + 1
+    assert after['flash_attention'] == before['flash_attention'] + 2
