@@ -197,7 +197,28 @@ Phases, each printing its own lines:
    ``kernels/`` (the reference's loss takes the float projections and
    ``gqa_core``; the W8A8 and flash wrappers refuse a gradient, which
    they have no backward for): the counters must stay 0 across every
-   train step.
+   train step;
+14. sharded training on a ``DeviceMesh`` (``torch.distributed``), right
+   after phase 11, launching no kernel (the counters must stay 0).  (a)
+   InternLM2-1.8B at phase 11's full width, depth and traffic on a (1,
+   1) mesh: one rank, ``nccl``, parameters and moments DTensors on
+   cuda:0; losses and grad norms within ``MESH_ONE_RTOL`` of phase 11's
+   single-device run, first and steady step seconds, tokens/s and peak
+   memory beside phase 11's.  (b) ``MESH_RANKS`` ranks started with
+   ``torch.multiprocessing`` (spawn), all on cuda:0 under ``gloo`` (the
+   card's one GPU; NCCL refuses two ranks on one card), on a (2, 2)
+   mesh: InternLM2-1.8B at full width cut to ``MESH_LAYERS`` layers,
+   ``MESH_STEPS`` steps of ``MESH_BATCH`` x ``MESH_SEQ`` tokens; losses
+   within ``MESH_RTOL`` of a single-device ``Trainer`` of the same
+   config on the card; every rank's local shards on cuda; a checkpoint
+   saved on (2, 2) under ``build/mesh-train`` restored onto (4, 1) and
+   (1, 1) equal to the saved arrays bit for bit; the step seconds and
+   each rank's peak memory.  First each rank runs every collective the
+   phase uses on CUDA tensors under gloo (``GLOO_COLLECTIVES``) and
+   the phase fails if one is missing.  (c) one train step of each smoke
+   config of ``TRAIN_SMALL_ARCHS`` on that (2, 2) card mesh against the
+   single-device step on the card, within ``MESH_RTOL``.  A rank that
+   fails fails the phase.
 
 Every phase prints its seconds (``[time]``).
 
@@ -381,6 +402,19 @@ TRAIN_OUT = ROOT / 'build' / 'train-smoke'
 # on the CPU: 11.812)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 6
 TRAIN_LOSS0_ATOL = 0.2
+# phase 14, sharded training.  (a) phase 11 (b)'s run on a (1, 1) mesh:
+# the same float32 operations on DTensors whose placements are all
+# Replicate; only the grad norm's sum runs in another order (per leaf,
+# then over the mesh), so losses and grad norms within 1e-5 relative.
+# (b), (c) four gloo ranks on cuda:0 on a (2, 2) mesh: the matmuls reduce
+# over shards, float32 sums in another order, so losses and grad norms
+# within 1e-4 relative, as phase 11 (a)'s card against the CPU
+MESH_ONE_RTOL = 1e-5
+MESH_RANKS, MESH_SHAPE = 4, (2, 2)
+MESH_LAYERS, MESH_BATCH, MESH_SEQ, MESH_STEPS = 2, 4, 256, 3
+MESH_RTOL = 1e-4
+MESH_OUT = ROOT / 'build' / 'mesh-train'
+MESH_TIMEOUT_S = 600
 # (BH, S, T, d, causal, q dtype, k/v dtype): the InternLM2-1.8B prefill
 # (4 x 16 heads, 1000 tokens, not a multiple of the 64-row tile) in the
 # path's float32, all-bf16, and float32 q over a bf16 cache; the
@@ -2145,7 +2179,7 @@ def phase_train(torch, ops, card):
     """Phase 11: training, every earlier model freed.  (a) the smoke
     configs of ``TRAIN_SMALL_ARCHS`` on the card against the CPU, and a
     ``Trainer``'s resume on the card; (b) InternLM2-1.8B at full width
-    and depth (``train_full``)."""
+    and depth (``train_full``), whose run it returns for phase 14."""
     gc.collect()
     torch.cuda.empty_cache()
     print(f'[train] {torch.cuda.memory_allocated() / 2**30:.2f} GiB '
@@ -2153,7 +2187,7 @@ def phase_train(torch, ops, card):
     for arch in TRAIN_SMALL_ARCHS:
         train_small(torch, ops, arch)
     train_resume(torch)
-    train_full(torch, ops, card)
+    return train_full(torch, ops, card)
 
 
 def train_small(torch, ops, arch):
@@ -2273,19 +2307,8 @@ def train_full(torch, ops, card):
     flops = 6 * (mm_blocks + mm_head) * tokens + 2 * mm_blocks * tokens + attn
     init = [p.detach().to('cpu', copy=True)
             for p in ST.train_params(tr.params).values()]
-    times, norms = [], []
     step_fn = tr.step_fn
-
-    def timed(*args):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = step_fn(*args)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t)
-        norms.append(out[2]['grad_norm'].item())
-        return out
-
-    tr.step_fn = timed
+    times, norms = timed_steps(torch, tr)
     data = TokenPipelineConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2344,6 +2367,382 @@ def train_full(torch, ops, card):
     del tr, params, m
     gc.collect()
     torch.cuda.empty_cache()
+    return {'losses': losses, 'norms': norms, 'first': times[0],
+            'steady': steady, 'peak': peak}
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('localhost', 0))
+        return sock.getsockname()[1]
+
+
+def timed_steps(torch, tr):
+    """Wrap ``tr.step_fn`` to record each step's seconds (synchronized
+    on the card) and grad norm; returns the two lists."""
+    times, norms = [], []
+    step_fn = tr.step_fn
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step_fn(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        norms.append(out[2]['grad_norm'].item())
+        return out
+
+    tr.step_fn = timed
+    return times, norms
+
+
+def rel_err(got, want) -> float:
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def phase_mesh_train(torch, ops, card, single):
+    """Phase 14: sharded training.  ``single`` is phase 11 (b)'s run."""
+    mesh_one_rank(torch, ops, card, single)
+    mesh_ranks(torch, card)
+
+
+def mesh_one_rank(torch, ops, card, single):
+    """(a) InternLM2-1.8B at full width and depth on a (1, 1) mesh, one
+    rank under nccl, phase 11 (b)'s traffic, against phase 11 (b)."""
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get
+    from repro_torch.data.pipeline import TokenPipelineConfig
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import Trainer
+    from repro_torch.optim.adamw import AdamWConfig
+    cfg = get(LM_ARCH)
+    dist.init_process_group('nccl', init_method=f'tcp://localhost:'
+                            f'{free_port()}', rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ('data', 'model'), 'cuda')
+        tr = Trainer(cfg, AdamWConfig(lr=1e-3, warmup_steps=2,
+                                      total_steps=TRAIN_STEPS),
+                     device='cuda', mesh=mesh)
+        params = ST.train_params(tr.params).values()
+        check(all(SH.is_dtensor(p) and p.to_local().is_cuda
+                  for p in params) and
+              all(SH.is_dtensor(m) for m in tr.opt.m + tr.opt.v),
+              'the (1, 1) mesh holds a parameter or moment that is not a '
+              'DTensor on the card')
+        times, norms = timed_steps(torch, tr)
+        data = TokenPipelineConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()           # the sharded run starts here
+        losses = tr.run(data, TRAIN_STEPS, log_every=TRAIN_STEPS)
+        launches = ops.launch_counts()  # ... and ends here
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steady = statistics.median(times[1:])
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        err_l = rel_err(losses, single['losses'])
+        err_n = rel_err(norms, single['norms'])
+        print(f'[mesh-train] {card}: (a) {cfg.name} full width and depth '
+              f'on a (1, 1) nccl mesh (DTensor parameters and moments), '
+              f'{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens: '
+              f'first step {times[0]:.3f} s, steady {steady:.3f} s '
+              f'({[round(t, 3) for t in times[1:]]}) = '
+              f'{tokens / steady:.1f} tokens/s, peak memory {peak:.2f} GiB; '
+              f'phase 11 (b): first {single["first"]:.3f} s, steady '
+              f'{single["steady"]:.3f} s = '
+              f'{tokens / single["steady"]:.1f} tokens/s, peak '
+              f'{single["peak"]:.2f} GiB; losses '
+              f'{[round(x, 5) for x in losses]}'
+              f' against phase 11: max relative err {err_l:.3e}, grad norms '
+              f'{err_n:.3e} (tol {MESH_ONE_RTOL}); launches {launches}')
+        check(len(losses) == TRAIN_STEPS and err_l <= MESH_ONE_RTOL
+              and err_n <= MESH_ONE_RTOL,
+              f'(1, 1) mesh: losses {losses} / norms {norms} against '
+              f'{single}')
+        check(sum(launches.values()) == 0,
+              f'(1, 1) mesh training launched kernels {launches}')
+        del tr, params
+    finally:
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def mesh_cfg():
+    """(b)'s model: InternLM2-1.8B at full width, ``MESH_LAYERS`` deep."""
+    import dataclasses
+    from repro_torch.configs.registry import get
+    return dataclasses.replace(get(LM_ARCH), n_layers=MESH_LAYERS)
+
+
+def mesh_opt(steps):
+    from repro_torch.optim.adamw import AdamWConfig
+    return AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=steps)
+
+
+def mesh_data(cfg, batch=MESH_BATCH, seq=MESH_SEQ):
+    from repro_torch.data.pipeline import TokenPipelineConfig
+    return TokenPipelineConfig(cfg.vocab, seq, batch)
+
+
+def gloo_collectives(torch, dist, world):
+    """Every collective the phase reaches, once on CUDA tensors under
+    gloo: {name: 'ok' or the error}."""
+    dev = torch.device('cuda', 0)
+    x = torch.arange(8, dtype=torch.float32, device=dev)
+    calls = {
+        'all_reduce': lambda: dist.all_reduce(x.clone()),
+        'broadcast': lambda: dist.broadcast(x.clone(), 0),
+        'all_gather_into_tensor': lambda: dist.all_gather_into_tensor(
+            torch.empty(8 * world, device=dev), x),
+        'reduce_scatter_tensor': lambda: dist.reduce_scatter_tensor(
+            torch.empty(8 // world, device=dev), x),
+        'all_to_all_single': lambda: dist.all_to_all_single(
+            torch.empty_like(x), x),
+        'barrier': dist.barrier,
+    }
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            torch.cuda.synchronize()
+            out[name] = 'ok'
+        except Exception as e:             # the phase reports every one
+            out[name] = f'{type(e).__name__}: {str(e)[:160]}'
+    return out
+
+
+def mesh_rank(rank, world, port, out_dir):
+    """One rank of (b) and (c), started by ``torch.multiprocessing``: its
+    results in ``out_dir/{rank}.pt``, its traceback in ``{rank}.err``."""
+    import datetime
+    import traceback
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group('gloo', init_method=f'tcp://localhost:{port}',
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        torch.save(mesh_rank_work(torch, dist, rank, world),
+                   os.path.join(out_dir, f'{rank}.pt'))
+    except BaseException:
+        with open(os.path.join(out_dir, f'{rank}.err'), 'w') as f:
+            f.write(traceback.format_exc())
+        os._exit(1)
+    dist.destroy_process_group()
+
+
+def mesh_rank_work(torch, dist, rank, world):
+    import logging
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.data.pipeline import token_batch
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import Trainer
+    logging.getLogger('torch.distributed.tensor').setLevel(logging.ERROR)
+    out = {'collectives': gloo_collectives(torch, dist, world)}
+    if any(v != 'ok' for v in out['collectives'].values()):
+        return out
+    ops.reset_launches()
+    mesh = make_mesh(MESH_SHAPE, ('data', 'model'), 'cuda')
+    # (c) one step of each smoke family
+    out['families'] = {}
+    for arch in TRAIN_SMALL_ARCHS:
+        cfg = smoke_config(arch)
+        tr = Trainer(cfg, mesh_opt(1), device='cuda', mesh=mesh)
+        _, _, m = tr.step_fn(tr.params, tr.opt,
+                             token_batch(mesh_data(cfg, 4, 64), 0,
+                                         device='cuda'))
+        out['families'][arch] = (m['loss'].item(), m['grad_norm'].item())
+        del tr
+    # (b) full width, MESH_LAYERS deep
+    cfg = mesh_cfg()
+    ckpt = str(MESH_OUT)
+    if rank == 0:
+        shutil.rmtree(MESH_OUT, ignore_errors=True)
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, mesh_opt(MESH_STEPS), ckpt_dir=ckpt, device='cuda',
+                 mesh=mesh)
+    params = ST.train_params(tr.params)
+    out['local_on_cuda'] = all(SH.is_dtensor(p) and p.to_local().is_cuda
+                               for p in params.values())
+    out['sharded_both'] = sum(
+        all(pl.is_shard() for pl in p.placements) for p in params.values())
+    out['local_bytes'] = sum(p.to_local().numel() * 4
+                             for p in params.values())
+    times, norms = timed_steps(torch, tr)
+    out['losses'] = tr.run(mesh_data(cfg), MESH_STEPS, log_every=MESH_STEPS)
+    out['times'], out['norms'] = times, norms
+    out['peak'] = torch.cuda.max_memory_allocated() / 2**30
+    del tr, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # restored onto (4, 1)
+    mesh2 = make_mesh((world, 1), ('data', 'model'), 'cuda')
+    tr = Trainer(cfg, mesh_opt(MESH_STEPS), ckpt_dir=ckpt, device='cuda',
+                 mesh=mesh2)
+    tr.maybe_restore()
+    out['restored_at'] = tr.start_step
+    out['restored'] = restored_equal(torch, tr) if rank == 0 else None
+    if rank != 0:
+        restored_equal(torch, tr, gather_only=True)
+    out['launches'] = sum(ops.launch_counts().values())
+    return out
+
+
+def restored_equal(torch, tr, gather_only=False):
+    """The parameters of ``tr`` gathered whole (a collective) against the
+    arrays of its checkpoint's latest step: the names that differ."""
+    import numpy
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import steps as ST
+    full = {n: (p.full_tensor() if SH.is_dtensor(p) else p).detach().cpu()
+            for n, p in ST.train_params(tr.params).items()}
+    if gather_only:
+        return None
+    sd = MESH_OUT / f'step_{tr.ckpt.latest_step():08d}'
+    with open(sd / 'meta.json') as f:
+        meta = json.load(f)
+    with numpy.load(sd / 'arrays.npz') as data:
+        saved = {n[len('params.'):]: data[f'a{i}']
+                 for i, n in enumerate(meta['names'])
+                 if n.startswith('params.')}
+    bad = [n for n, a in saved.items()
+           if n not in full or not numpy.array_equal(full[n].numpy(), a)]
+    return {'differ': bad, 'n': len(saved), 'mesh': meta['mesh']}
+
+
+def mesh_ranks(torch, card):
+    """(b) and (c): ``MESH_RANKS`` gloo ranks on cuda:0, then the
+    single-device references and the (1, 1) restore in this process."""
+    import tempfile
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.data.pipeline import token_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import Trainer
+    t0 = time.perf_counter()
+    ctx = mp.get_context('spawn')
+    with tempfile.TemporaryDirectory() as out_dir:
+        port = free_port()
+        procs = [ctx.Process(target=mesh_rank,
+                             args=(r, MESH_RANKS, port, out_dir))
+                 for r in range(MESH_RANKS)]
+        for p in procs:
+            p.start()
+        deadline = time.time() + MESH_TIMEOUT_S
+        try:
+            while any(p.exitcode is None for p in procs):
+                if any(p.exitcode not in (None, 0) for p in procs) or \
+                        time.time() > deadline:
+                    errs = [open(os.path.join(out_dir, n)).read()
+                            for n in sorted(os.listdir(out_dir))
+                            if n.endswith('.err')]
+                    raise AssertionError(
+                        f'phase 14 ranks failed or timed out: exit codes '
+                        f'{[p.exitcode for p in procs]}\n' + ''.join(errs[:1]))
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        res = [torch.load(os.path.join(out_dir, f'{r}.pt'),
+                          weights_only=False) for r in range(MESH_RANKS)]
+    wall = time.perf_counter() - t0
+    coll = res[0]['collectives']
+    print(f'[mesh-train] {card}: (b) gloo on CUDA tensors, {MESH_RANKS} '
+          f'ranks on cuda:0 (torch {torch.__version__}): {coll}')
+    check(all(v == 'ok' for r in res for v in r['collectives'].values()),
+          f'gloo lacks a collective on CUDA tensors: {coll}')
+    # (c) the smoke families against one step on the card
+    for arch in TRAIN_SMALL_ARCHS:
+        cfg = smoke_config(arch)
+        tr = Trainer(cfg, mesh_opt(1), device='cuda')
+        _, _, m = tr.step_fn(tr.params, tr.opt,
+                             token_batch(mesh_data(cfg, 4, 64), 0,
+                                         device='cuda'))
+        want = (m['loss'].item(), m['grad_norm'].item())
+        got = res[0]['families'][arch]
+        err = rel_err(got, want)
+        print(f'[mesh-train] (c) {cfg.name} on the {MESH_SHAPE} card mesh: '
+              f'loss {got[0]:.6f}, grad norm {got[1]:.6f}; one card '
+              f'{want[0]:.6f}, {want[1]:.6f}: max relative err {err:.3e} '
+              f'(tol {MESH_RTOL})')
+        check(err <= MESH_RTOL and all(r['families'][arch] == got
+                                       for r in res),
+              f'{cfg.name} on the card mesh: {got} against {want}')
+        del tr
+    # (b) against a single-device Trainer of the same config on the card
+    cfg = mesh_cfg()
+    tr = Trainer(cfg, mesh_opt(MESH_STEPS), device='cuda')
+    times, norms = timed_steps(torch, tr)
+    want = tr.run(mesh_data(cfg), MESH_STEPS, log_every=MESH_STEPS)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    r0 = res[0]
+    err_l, err_n = rel_err(r0['losses'], want), rel_err(r0['norms'], norms)
+    tokens = MESH_BATCH * MESH_SEQ
+    print(f'[mesh-train] {card}: (b) {cfg.name} at full width, '
+          f'{MESH_LAYERS} layers, on a {MESH_SHAPE} gloo mesh of '
+          f'{MESH_RANKS} ranks on cuda:0: {MESH_STEPS} steps of '
+          f'{MESH_BATCH} x {MESH_SEQ} tokens, step seconds '
+          f'{[round(t, 3) for t in r0["times"]]} (one card '
+          f'{[round(t, 3) for t in times]}), steady '
+          f'{tokens / statistics.median(r0["times"][1:]):.1f} tokens/s; '
+          f'peak memory per rank {[round(r["peak"], 2) for r in res]} GiB, '
+          f'local parameters {r0["local_bytes"] / 2**30:.2f} GiB a rank, '
+          f'{r0["sharded_both"]} parameters sharded on both axes; losses '
+          f'{[round(x, 5) for x in r0["losses"]]} against one card '
+          f'{[round(x, 5) for x in want]}: max relative err {err_l:.3e}, '
+          f'grad norms {err_n:.3e} (tol {MESH_RTOL}); every local shard on '
+          f'cuda: {all(r["local_on_cuda"] for r in res)}; kernel launches '
+          f'per rank {[r["launches"] for r in res]}; {wall:.1f} s for the '
+          f'ranks')
+    check(err_l <= MESH_RTOL and err_n <= MESH_RTOL,
+          f'(2, 2) mesh: losses {r0["losses"]} against {want}')
+    check(all(r['local_on_cuda'] for r in res) and r0['sharded_both'] > 0,
+          'a rank holds a local shard off the card or nothing is sharded '
+          'on both axes')
+    check(all(r['losses'] == r0['losses'] for r in res),
+          'the ranks disagree on the losses')
+    check(all(r['launches'] == 0 for r in res),
+          f'the card mesh launched kernels {[r["launches"] for r in res]}')
+    # the (2, 2) checkpoint restored onto (4, 1) and (1, 1)
+    rest = r0['restored']
+    check(r0['restored_at'] == MESH_STEPS and not rest['differ']
+          and rest['mesh'] == {'shape': list(MESH_SHAPE),
+                               'axes': ['data', 'model']},
+          f'(2, 2) checkpoint onto ({MESH_RANKS}, 1): {rest}')
+    dist.init_process_group('gloo', init_method=f'tcp://localhost:'
+                            f'{free_port()}', rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ('data', 'model'), 'cuda')
+        tr = Trainer(cfg, mesh_opt(MESH_STEPS), ckpt_dir=str(MESH_OUT),
+                     device='cuda', mesh=mesh)
+        tr.maybe_restore()
+        one = restored_equal(torch, tr)
+        start = tr.start_step
+        del tr
+    finally:
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f'[mesh-train] (b) checkpoint saved on {MESH_SHAPE} '
+          f'({MESH_OUT.relative_to(ROOT)}, mesh {rest["mesh"]}) restored '
+          f'onto ({MESH_RANKS}, 1) and (1, 1) at step {start}: '
+          f'{rest["n"]} parameters, differing from the saved arrays '
+          f'{rest["differ"]} and {one["differ"]}')
+    check(start == MESH_STEPS and not one['differ'],
+          f'(2, 2) checkpoint onto (1, 1): {one}')
 
 
 def tiny_sd():
@@ -2849,8 +3248,12 @@ def main() -> int:
     lap('10 (encoder-decoder, VLM)')
 
     # phase 11: training, every earlier model freed; it launches no kernel
-    phase_train(torch, ops, card)
+    single = phase_train(torch, ops, card)
     lap('11 (training)')
+
+    # phase 14: sharded training on a DeviceMesh; no kernel either
+    phase_mesh_train(torch, ops, card, single)
+    lap('14 (sharded training)')
 
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():

@@ -1,5 +1,5 @@
 """Fault-tolerant checkpointing: port of ``repro/checkpoint/manager.py``
-(async writer, atomic commit, auto-resume), for one device.
+(async writer, atomic commit, auto-resume, elastic resharding).
 
 Layout (one directory per step), the reference's:
     <dir>/step_000123/
@@ -22,6 +22,16 @@ stay.  The device-to-host copy is synchronous, so the snapshot is the
 state at the call, whatever the training thread updates in place next;
 with ``blocking=False`` the file IO runs on a writer thread, at most one
 at a time, whose error is raised at the next ``wait()``.
+
+Sharded trees.  A ``DTensor`` leaf is stored with its logical (full)
+shape: ``save`` gathers it with ``full_tensor()``, a collective that
+every rank runs on the calling thread before any writer starts; only
+rank 0 writes and commits, and every rank then passes a barrier (for an
+asynchronous save, at the next ``wait()``), so ``latest_step`` agrees
+across ranks.  ``meta.json`` records the mesh's shape and axis names.
+``restore`` places each full array onto the ``like`` leaf's *current*
+mesh with its placements, each rank keeping its own chunk: a checkpoint
+saved on a ``(2, 4)`` mesh restores onto ``(4, 2)`` or ``(1, 1)``.
 """
 from __future__ import annotations
 
@@ -34,6 +44,9 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.distributed import sharding as SH
 
 
 def _flatten(tree: Any, prefix: str = '') -> List[Tuple[str, torch.Tensor]]:
@@ -61,20 +74,40 @@ def _unflatten(like: Any, leaves) -> Any:
 
 
 def _to_host(x: torch.Tensor) -> np.ndarray:
-    """A copy on the host, never a view of ``x``."""
+    """A copy on the host, never a view of ``x``; a DTensor gathered whole
+    first (a collective)."""
+    if SH.is_dtensor(x):
+        x = x.full_tensor()
     x = x.detach().to('cpu', copy=True)
     if x.dtype == torch.bfloat16:
         x = x.view(torch.int16)
     return x.numpy()
 
 
+def _distributed() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def _mesh_meta(leaves) -> Optional[dict]:
+    for _, x in leaves:
+        if SH.is_dtensor(x):
+            return {'shape': list(x.device_mesh.shape),
+                    'axes': list(SH.axis_names(x.device_mesh))}
+    return None
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3):
         self.dir = directory
         self.keep = keep
-        os.makedirs(directory, exist_ok=True)
+        self.rank = dist.get_rank() if _distributed() else 0
+        if self.rank == 0:
+            os.makedirs(directory, exist_ok=True)
+        if _distributed():
+            dist.barrier()
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._pending = False       # a save whose barrier is still due
 
     # -- paths ---------------------------------------------------------------
     def _step_dir(self, step: int) -> str:
@@ -102,7 +135,8 @@ class CheckpointManager:
         meta = {'step': step, 'names': [n for n, _ in leaves],
                 'dtypes': [str(x.dtype).removeprefix('torch.')
                            for _, x in leaves],
-                'n_leaves': len(leaves), 'extra': extra_meta or {}}
+                'n_leaves': len(leaves), 'mesh': _mesh_meta(leaves),
+                'extra': extra_meta or {}}
 
         def _write():
             sd = self._step_dir(step)
@@ -121,9 +155,9 @@ class CheckpointManager:
             os.replace(tmp, sd)
             self._gc()
 
-        if blocking:
+        if self.rank == 0 and blocking:
             _write()
-        else:
+        elif self.rank == 0:
             def _guarded():
                 try:
                     _write()
@@ -131,11 +165,18 @@ class CheckpointManager:
                     self._error = e
             self._thread = threading.Thread(target=_guarded, daemon=True)
             self._thread.start()
+        self._pending = True
+        if blocking:
+            self.wait()
 
     def wait(self):
+        """Join the writer; on a mesh every rank calls it (a barrier)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._pending and _distributed():
+            dist.barrier()
+        self._pending = False
         if self._error is not None:
             err, self._error = self._error, None
             raise RuntimeError('async checkpoint write failed') from err
@@ -147,8 +188,9 @@ class CheckpointManager:
     # -- restore -------------------------------------------------------------
     def restore(self, step: int, like: Any) -> Any:
         """The tree saved at ``step``, in the structure of ``like``, each
-        tensor on its ``like`` leaf's device; raises when the names of
-        the leaves differ from the saved ones."""
+        tensor on its ``like`` leaf's device (a DTensor leaf: on its mesh,
+        with its placements); raises when the names of the leaves differ
+        from the saved ones."""
         self.wait()
         sd = self._step_dir(step)
         with open(os.path.join(sd, 'meta.json')) as f:
@@ -167,7 +209,11 @@ class CheckpointManager:
             t = torch.from_numpy(a)
             if dt == 'bfloat16':
                 t = t.view(torch.bfloat16)
-            out.append(t.to(x.device))
+            if SH.is_dtensor(x):
+                out.append(SH.distribute(t.to(x.device), x.device_mesh,
+                                         x.placements))
+            else:
+                out.append(t.to(x.device))
         return _unflatten(like, iter(out))
 
     def restore_latest(self, like: Any) -> Tuple[Optional[int], Any]:

@@ -6,7 +6,11 @@ step is the loss under autograd, then AdamW (``optim/adamw.py``); it
 updates the model's parameters in place, where the reference's jit
 donates their buffers, and launches no kernel of ``kernels/``: the loss
 runs the float projections and ``gqa_core``, as the reference's, and
-neither package has a backward kernel.  Each serving step returns the
+neither package has a backward kernel.  Given a mesh, the train step
+lays the batch out over the data-parallel axes, runs the loss and its
+gradient under ``implicit_replication`` (the positions, masks and RoPE
+tables the forward makes are plain tensors, taken as replicated), and
+reduces the loss to its full value.  Each serving step returns the
 greedy next token ``(B, 1)`` int32 and the serve state.  For the
 encoder-decoder family the serving steps ignore ``quant``, as the
 reference's do: Whisper under ``--w8a8`` runs float and launches no W8A8
@@ -14,12 +18,14 @@ kernel.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.nn as nn
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as T
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
@@ -60,19 +66,42 @@ def train_loss(model: nn.Module, cfg: ArchConfig,
                      dtype=dtype, real_vocab=real_vocab)
 
 
+def shard_batch(batch: Dict[str, torch.Tensor], mesh
+                ) -> Dict[str, torch.Tensor]:
+    """The global batch, the same on every rank, as DTensors sharded over
+    the mesh's data-parallel axes (``batch_pspecs``) and replicated over
+    'model': each rank keeps its own rows."""
+    return {k: SH.distribute(v, mesh, SH.batch_pspecs(mesh, v.shape[0],
+                                                      v.dim()))
+            for k, v in batch.items()}
+
+
 def build_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
                      real_vocab: Optional[int] = None,
-                     dtype: torch.dtype = torch.bfloat16) -> Callable:
+                     dtype: torch.dtype = torch.bfloat16,
+                     mesh=None) -> Callable:
     """(model, opt_state, batch) -> (model, opt_state, metrics): one
     AdamW step on the batch's loss, the parameters updated in place;
     ``metrics`` holds the ``loss`` and the ``grad_norm`` before clipping,
-    as 0-d tensors on the model's device."""
+    as 0-d tensors on the model's device.  With ``mesh`` the model's
+    parameters are DTensors on it, the batch is the global one, and both
+    metrics are full values, the same on every rank."""
 
     def train_step(model, opt_state, batch):
         params = list(train_params(model).values())
-        loss = train_loss(model, cfg, batch, dtype, real_vocab)
-        grads = torch.autograd.grad(loss, params)
+        if mesh is None:
+            ctx = contextlib.nullcontext()
+        else:
+            from torch.distributed.tensor.experimental import \
+                implicit_replication
+            ctx = implicit_replication()
+            batch = shard_batch(batch, mesh)
+        with SH.use_mesh(mesh), ctx:
+            loss = train_loss(model, cfg, batch, dtype, real_vocab)
+            grads = torch.autograd.grad(loss, params)
         _, opt_state, gnorm = adamw_update(opt_cfg, grads, opt_state, params)
+        if mesh is not None:
+            loss = loss.full_tensor()
         return model, opt_state, {'loss': loss.detach(), 'grad_norm': gnorm}
 
     return train_step

@@ -39,6 +39,7 @@ import torch.nn as nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.lse_softmax import lse_softmax
 from repro_torch.core.quantization import QTensor
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
@@ -115,7 +116,7 @@ def gqa_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     rep = H // G
     if scale is None:
         scale = hd ** -0.5
-    qg = q.reshape(B, S, G, rep, hd).float() * scale
+    qg = SH.split_dim(q, 2, (G, rep)).float() * scale
     s = torch.einsum('bsgrd,btgd->bgrst', qg, k.float())
     t_pos = torch.arange(T, device=q.device)
     mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
@@ -128,6 +129,18 @@ def gqa_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = lse_softmax(s, dim=-1)                             # paper Eq. 4
     out = torch.einsum('bgrst,btgd->bsgrd', p, v.float())
     return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def core_on_shards(core, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   **kw) -> torch.Tensor:
+    """``core(q, k, v, **kw)``; on a mesh, on each rank's own batch rows
+    and heads (``sharding.on_shards``): attention is independent per row
+    and per KV group, so the local core is the core.  q's heads follow
+    K's: when the KV heads do not divide 'model' (kept whole by
+    ``shard_hint``), q's are gathered too."""
+    if SH.is_dtensor(q) and q.placements != k.placements:
+        q = q.redistribute(q.device_mesh, k.placements)
+    return SH.on_shards(lambda a, b, c: core(a, b, c, **kw), 1, q, k, v)
 
 
 def flash_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -162,14 +175,16 @@ def _project_kv(p: Attention, cfg: ArchConfig, x_kv: torch.Tensor,
     """K and V of ``x_kv``; K rotated at ``pos`` unless it is None (the
     encoder memory of cross-attention)."""
     B, T, _ = x_kv.shape
-    k = p.wk(x_kv).reshape(B, T, cfg.n_kv_heads, cfg.hd)
-    v = p.wv(x_kv).reshape(B, T, cfg.n_kv_heads, cfg.hd)
+    k = SH.split_dim(p.wk(x_kv), -1, (cfg.n_kv_heads, cfg.hd))
+    v = SH.split_dim(p.wv(x_kv), -1, (cfg.n_kv_heads, cfg.hd))
     if pos is not None:
         k = apply_rope(cfg, k, pos)
     if cfg.kv_repeat > 1:     # the reference's logical replication
         k = k.repeat_interleave(cfg.kv_repeat, dim=2)
         v = v.repeat_interleave(cfg.kv_repeat, dim=2)
-    return k, v
+    tp = 'model' if cfg.model_axis_tp else None
+    return (SH.shard_hint(k, 'dp', None, tp, None),
+            SH.shard_hint(v, 'dp', None, tp, None))
 
 
 def _positions(x: torch.Tensor, cache_pos: Optional[int]) -> torch.Tensor:
@@ -206,15 +221,19 @@ def attention(p: Attention, cfg: ArchConfig, x: torch.Tensor, *,
     if pos is None:
         pos = _positions(x, cache_pos)
     pol = 'w8a8' if quant else None
-    q = apply_rope(cfg, p.wq(x, pol).reshape(B, S, H, hd), pos)
+    tp = 'model' if cfg.model_axis_tp else None
+    x = SH.shard_hint(x, 'dp', None, None)
+    q = SH.shard_hint(SH.split_dim(p.wq(x, pol), -1, (H, hd)),
+                      'dp', None, tp, None)
+    q = apply_rope(cfg, q, pos)
 
     if memory is not None:                       # cross-attention
         k, v = _project_kv(p, cfg, memory, None)
-        out = gqa_core(q, k, v, causal=False)
+        out = core_on_shards(gqa_core, q, k, v, causal=False)
     elif cache is None:                          # plain self-attention
         k, v = _project_kv(p, cfg, x, pos)
         core = flash_core if impl == 'pallas' else gqa_core
-        out = core(q, k, v, causal=causal)
+        out = core_on_shards(core, q, k, v, causal=causal)
     else:                                        # prefill or decode
         k, v = _project_kv(p, cfg, x, pos)
         ck, cv = cache['k'], cache['v']
@@ -225,7 +244,9 @@ def attention(p: Attention, cfg: ArchConfig, x: torch.Tensor, *,
         else:
             out = gqa_core(q, ck, cv, causal=True, q_offset=cache_pos,
                            kv_len=cache_pos + S)
-    return p.wo(out.reshape(B, S, H * hd), pol), cache
+    out = SH.shard_hint(out, 'dp', None, tp, None)
+    y = p.wo(out.reshape(B, S, H * hd), pol)
+    return SH.shard_hint(y, 'dp', None, None), cache
 
 
 def init_attention_cache(cfg: ArchConfig, batch: int, max_len: int,
@@ -286,7 +307,10 @@ def mla_attention(p: MLA, cfg: ArchConfig, x: torch.Tensor, *,
     if pos is None:
         pos = _positions(x, cache_pos)
     pol = 'w8a8' if quant else None
-    q = p.wq(x, pol).reshape(B, S, H, nope + rpe)
+    tp = 'model' if cfg.model_axis_tp else None
+    x = SH.shard_hint(x, 'dp', None, None)
+    q = SH.shard_hint(SH.split_dim(p.wq(x, pol), -1, (H, nope + rpe)),
+                      'dp', None, tp, None)
     q_nope = q[..., :nope].float()
     q_pe = rope(q[..., nope:], pos, cfg.rope_theta).float()
     c_kv = L.rmsnorm(p.kv_norm, p.w_dkv(x, pol))
@@ -314,15 +338,29 @@ def mla_attention(p: MLA, cfg: ArchConfig, x: torch.Tensor, *,
         out = torch.einsum('bshr,rhv->bshv', o_lat,
                            _raw(p.w_uv).reshape(rank, H, vd))
     else:                                                # decompressed
-        k_nope = p.w_uk(c_kv).reshape(B, S, H, nope)
-        vv = p.w_uv(c_kv).reshape(B, S, H, vd)
-        s = (torch.einsum('bshn,bthn->bhst', q_nope, k_nope.float())
-             + torch.einsum('bshp,btp->bhst', q_pe, k_pe.float())) * scale
-        mask = torch.ones((S, S), dtype=torch.bool, device=x.device).tril()
-        pr = lse_softmax(torch.where(mask, s, NEG_INF), dim=-1)
-        out = torch.einsum('bhst,bthv->bshv', pr, vv.float())
-    y = p.wo(out.to(x.dtype).reshape(B, S, H * vd), pol)
-    return y, cache
+        k_nope = SH.shard_hint(SH.split_dim(p.w_uk(c_kv), -1, (H, nope)),
+                               'dp', None, tp, None)
+        vv = SH.shard_hint(SH.split_dim(p.w_uv(c_kv), -1, (H, vd)),
+                           'dp', None, tp, None)
+        out = SH.on_shards(
+            lambda a, b, c, d, e: _mla_core(a, b, c, d, e, scale), 1,
+            q_nope, q_pe, k_nope, k_pe, vv)
+    out = SH.shard_hint(out.to(x.dtype), 'dp', None, tp, None)
+    y = p.wo(out.reshape(B, S, H * vd), pol)
+    return SH.shard_hint(y, 'dp', None, None), cache
+
+
+def _mla_core(q_nope, q_pe, k_nope, k_pe, vv, scale):
+    """The decompressed MLA core: causal scores of q = (nope, pe) against
+    k = (nope per head, pe shared), softmax, times v per head.  On a mesh
+    it runs per rank on its batch rows and heads (``on_shards``; the
+    shared ``k_pe`` serves every head shard)."""
+    S = q_nope.shape[1]
+    s = (torch.einsum('bshn,bthn->bhst', q_nope, k_nope.float())
+         + torch.einsum('bshp,btp->bhst', q_pe, k_pe.float())) * scale
+    mask = torch.ones((S, S), dtype=torch.bool, device=s.device).tril()
+    pr = lse_softmax(torch.where(mask, s, NEG_INF), dim=-1)
+    return torch.einsum('bhst,bthv->bshv', pr, vv.float())
 
 
 def init_mla_cache(cfg: ArchConfig, batch: int, max_len: int,

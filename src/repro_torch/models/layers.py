@@ -34,6 +34,7 @@ from repro_torch.core.quantization import (QTensor, quantize,
 from repro_torch.core.sparse_dataflow import (conv_nhwc,
                                               conv_transpose_dense,
                                               conv_transpose_sparse)
+from repro_torch.distributed import sharding as SH
 
 
 def linear(x: torch.Tensor, w: Union[torch.Tensor, QTensor],
@@ -129,12 +130,22 @@ ACTIVATIONS = {'swish': swish, 'silu': swish, 'gelu': gelu,
 
 def embedding(p: 'Embedding', ids: torch.Tensor,
               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The rows of ``p.table`` at ``ids``.  A sharded table (the
+    reference's ``('model', 'data')``: vocabulary over 'model') is
+    gathered whole for the lookup (``sharding.lookup``)."""
+    if SH.is_dtensor(p.table):
+        return SH.lookup(p.table, ids).to(dtype)
     return p.table[ids].to(dtype)
 
 
 def embedding_logits(p: 'Embedding', x: torch.Tensor) -> torch.Tensor:
-    """Tied readout: x @ table^T, float32 out."""
-    return (x @ p.table.to(x.dtype).T).float()
+    """Tied readout: x @ table^T, float32 out.  On a mesh the table is
+    laid out with its vocabulary over 'model' and d_model whole, and its
+    gradient from here comes back in the table's own layout, as the
+    lookup's does (DTensor under torch 2.11 cannot add a partial and a
+    sharded gradient)."""
+    table = SH.shard_hint(p.table, 'model', None)
+    return (x @ table.to(x.dtype).T).float()
 
 
 def layernorm(p: 'LayerNorm', x: torch.Tensor,
@@ -153,12 +164,16 @@ def rmsnorm(p: 'RMSNorm', x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 def mlp(p: 'MLP', x: torch.Tensor, act: str = 'swish',
-        quant: bool = False) -> torch.Tensor:
+        quant: bool = False, tp_axis: Optional[str] = 'model'
+        ) -> torch.Tensor:
     """Gated (``act(gate(x)) * up(x)``) when ``p`` has a gate, else
-    ``act(up(x))``; then ``down``.  ``quant`` runs all three on W8A8."""
+    ``act(up(x))``; then ``down``.  ``quant`` runs all three on W8A8.
+    On a mesh the hidden units shard over ``tp_axis``."""
     f = ACTIVATIONS[act]
     pol = 'w8a8' if quant else None
     up = p.up(x, pol)
+    up = SH.shard_hint(up, *(('dp',) + (None,) * (up.dim() - 2)
+                             + (tp_axis,)))
     h = f(p.gate(x, pol)) * up if p.gate is not None else f(up)
     return p.down(h, pol)
 
@@ -179,7 +194,10 @@ def token_xent(logits: torch.Tensor, labels: torch.Tensor,
         pad_mask = torch.arange(vocab, device=logits.device) < real_vocab
         logits = torch.where(pad_mask, logits, -1e30)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.clamp_min(0)[..., None].long())[..., 0]
+    # on a mesh the gold logit is read with the vocabulary replicated:
+    # DTensor's gather along a sharded dim fails on a (B, S) result
+    whole = SH.shard_hint(logits, 'dp')
+    gold = whole.gather(-1, labels.clamp_min(0)[..., None].long())[..., 0]
     mask = (labels >= 0).float()
     return ((logz - gold) * mask).sum() / mask.sum().clamp_min(1.0)
 

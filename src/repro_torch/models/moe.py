@@ -25,6 +25,7 @@ import torch.nn as nn
 
 from repro_torch.configs.base import ArchConfig, MoEConfig
 from repro_torch.core.quantization import QTensor
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import layers as L
 
 
@@ -87,12 +88,22 @@ def _top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+def _route(x: torch.Tensor, p: MoE) -> torch.Tensor:
+    """Router probabilities (G, T, E) of the groups x (G, T, d)."""
+    return torch.softmax(p.router(x.float()), dim=-1)
+
+
 def _dispatch(x: torch.Tensor, p: MoE, m: MoEConfig, C: int):
     """Dispatch groups x (G, T, d) -> (buf (G, E, C, d), slot (G, T, k),
     top_p (G, T, k)); the scatter stays within each group."""
+    return _dispatch_routed(x, _route(x, p), m, C)
+
+
+def _dispatch_routed(x: torch.Tensor, probs: torch.Tensor, m: MoEConfig,
+                     C: int):
+    """``_dispatch`` given the router probabilities (G, T, E)."""
     G, T, d = x.shape
     E, k = m.n_experts, m.top_k
-    probs = torch.softmax(p.router(x.float()), dim=-1)
     top_p, top_e = _top_k(probs, k)
     if m.router_normalize:
         top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
@@ -124,7 +135,13 @@ def _combine(y_buf: torch.Tensor, slot: torch.Tensor, top_p: torch.Tensor,
 
 def moe_ffn(p: MoE, cfg: ArchConfig, x: torch.Tensor,
             quant: bool = False) -> torch.Tensor:
-    """x (B, S, d) -> (B, S, d)."""
+    """x (B, S, d) -> (B, S, d).  On a mesh the groups shard over the
+    data-parallel axes and the experts over 'model' (the reference's
+    constraints).  The dispatch (sort, ``searchsorted``, ``index_add_``),
+    the combine (a gather) and the reshapes into and out of groups have
+    no DTensor rule, so they run on each rank's own groups
+    (``sharding.on_shards``); the batch is replicated first when its
+    sharding and the groups' differ, so those reshapes stay local."""
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
@@ -135,13 +152,33 @@ def moe_ffn(p: MoE, cfg: ArchConfig, x: torch.Tensor,
     C = max(1, int(Tg * m.top_k * m.capacity_factor / m.n_experts))
     C = -(-C // 8) * 8          # the reference's lane-friendly multiple
     act = L.ACTIVATIONS[cfg.act]
-    buf, slot, top_p = _dispatch(x.reshape(G, Tg, d), p, m, C)
+    lay = 'dp'                  # the batch's layout around the groups
+    if SH.is_dtensor(x):
+        mesh = x.device_mesh
+        if SH.dp_spec(mesh, B) != SH.dp_spec(mesh, G):
+            lay = None
+        x = SH.shard_hint(x, lay, None, None)
+    xg = SH.shard_hint(SH.on_shards(lambda a: a.reshape(-1, Tg, d), 1, x),
+                       'dp', None, None)
+    probs = SH.shard_hint(_route(xg, p), 'dp', None, None)
+    buf, slot, top_p = SH.on_shards(
+        lambda a, b: _dispatch_routed(a, b, m, C), 3, xg, probs)
+    buf = SH.shard_hint(buf, 'dp', 'model', None, None)      # (G, E, C, d)
     h = act(torch.einsum('gecd,edf->gecf', buf, _wt(p.w_gate, x.dtype))) \
         * torch.einsum('gecd,edf->gecf', buf, _wt(p.w_up, x.dtype))
+    h = SH.shard_hint(h, 'dp', 'model', None, None)          # (G, E, C, ff)
     y_buf = torch.einsum('gecf,efd->gecd', h, _wt(p.w_down, x.dtype))
-    y = _combine(y_buf, slot, top_p, x.dtype).reshape(B, S, d)
+    y_buf = SH.shard_hint(y_buf, 'dp', 'model', None, None)
+    # the combine reads every expert's rows: 'model' gathered first
+    y_buf = SH.shard_hint(y_buf, 'dp', None, None, None)
+    y = SH.on_shards(lambda a, b, c: _combine(a, b, c, x.dtype), 1,
+                   y_buf, slot, top_p)
+    y = SH.shard_hint(y, lay, None, None)
+    y = SH.shard_hint(SH.on_shards(lambda a: a.reshape(-1, S, d), 1, y),
+                      'dp', None, None)
     if p.shared is not None:
-        y = y + L.mlp(p.shared, x, act=cfg.act, quant=quant)
+        y = y + L.mlp(p.shared, x, act=cfg.act, quant=quant,
+                      tp_axis='model' if cfg.model_axis_tp else None)
     return y
 
 

@@ -23,6 +23,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import layers as L
 
 
@@ -158,16 +159,18 @@ def mamba(p: Mamba, cfg: ArchConfig, x: torch.Tensor, *,
     B, S, _ = x.shape
     G, N, P = s.n_groups, s.d_state, s.headdim
     pol = 'w8a8' if quant else None
-    z = p.in_z(x, pol)
-    xBC = p.in_xbc(x, pol)
+    tp = 'model' if cfg.model_axis_tp else None
+    x = SH.shard_hint(x, 'dp', None, None)
+    z = SH.shard_hint(p.in_z(x, pol), 'dp', None, tp)
+    xBC = SH.shard_hint(p.in_xbc(x, pol), 'dp', None, tp)
     dt = p.in_dt(x, pol)
     xBC, new_conv = _causal_conv(xBC, p.conv_w.to(xBC.dtype),
                                  p.conv_b.to(xBC.dtype),
                                  None if cache is None else cache['conv'])
     xs, Bm, Cm = torch.split(xBC, [d_inner, G * N, G * N], dim=-1)
-    xh = xs.reshape(B, S, H, P).float()
-    Bm = Bm.reshape(B, S, G, N).float()
-    Cm = Cm.reshape(B, S, G, N).float()
+    xh = SH.split_dim(xs, -1, (H, P)).float()
+    Bm = SH.split_dim(Bm, -1, (G, N)).float()
+    Cm = SH.split_dim(Cm, -1, (G, N)).float()
     dt = F.softplus(dt.float() + p.dt_bias)               # (B, S, H)
     A = -torch.exp(p.A_log)
 
@@ -179,6 +182,14 @@ def mamba(p: Mamba, cfg: ArchConfig, x: torch.Tensor, *,
         state = cache['state'].float() * dA[:, :, None, None] \
             + (dt[:, 0, :, None] * xh[:, 0])[..., None] * bqh[:, :, None, :]
         y = torch.einsum('bhn,bhpn->bhp', cqh, state)[:, None]
+    elif SH.is_dtensor(xh):               # a mesh: no cache (training)
+        # the chunked scan per rank on its batch rows (``on_shards``):
+        # DTensor's einsum rules cannot follow its reshapes; the heads are
+        # whole on every rank, the constants gathered
+        xh, dt, Bm, Cm = (SH.shard_hint(t, 'dp') for t in (xh, dt, Bm, Cm))
+        y, state = SH.on_shards(
+            lambda a, b, c, d, e: _ssd_chunked(a, b, c, d, e, s.chunk), 2,
+            xh, dt, SH.replicate(A), Bm, Cm)
     else:
         y, state = _ssd_chunked(xh, dt, A, Bm, Cm, s.chunk,
                                 None if cache is None else cache['state'])

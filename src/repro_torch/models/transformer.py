@@ -30,6 +30,7 @@ import torch
 import torch.nn as nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
@@ -113,7 +114,8 @@ def apply_block(p: Block, cfg: ArchConfig, x: torch.Tensor, *,
             if ffn == 'E':
                 h = MOE.moe_ffn(sub.moe, cfg, h, quant=quant)
             else:
-                h = L.mlp(sub.mlp, h, act=cfg.act, quant=quant)
+                h = L.mlp(sub.mlp, h, act=cfg.act, quant=quant,
+                          tp_axis='model' if cfg.model_axis_tp else None)
             x = x + h
     return x, cache
 
@@ -156,8 +158,9 @@ def init_lm(generator: torch.Generator, cfg: ArchConfig, device=None) -> LM:
 
 def _readout(p: LM, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     x = NORMS[cfg.norm][1](p.final_norm, x)
-    return (L.embedding_logits(p.embed, x) if cfg.tie_embeddings
-            else p.lm_head(x))
+    logits = (L.embedding_logits(p.embed, x) if cfg.tie_embeddings
+              else p.lm_head(x))
+    return SH.shard_hint(logits, 'dp', None, 'model')
 
 
 def _apply_blocks(p: LM, cfg: ArchConfig, x: torch.Tensor, *, cache=None,
@@ -187,6 +190,7 @@ def lm_apply(p: LM, cfg: ArchConfig, tokens: Optional[torch.Tensor], *,
     positions 0 .. S-1 in every attention mixer."""
     x = (L.embedding(p.embed, tokens, dtype) if inputs_embeds is None
          else inputs_embeds.to(dtype))
+    x = SH.shard_hint(x, 'dp', None, None)
     x, _ = _apply_blocks(p, cfg, x, pos=pos, quant=quant)
     return _readout(p, cfg, x)
 

@@ -5,16 +5,21 @@ CLI, on the CPU: the reference's tests of ``CheckpointManager``,
 names, dtypes and async error; a resumed ``Trainer`` equal to an
 uninterrupted one, from its final and from a periodic checkpoint, and
 after a preemption; ``main()`` run twice on one checkpoint directory;
-the refused ``--mesh-shape``.
+``--mesh-shape`` refused where the ranks cannot hold it, and ``2,2``
+trained and resumed under four spawned ``gloo`` ranks (~25 s).
 
 Imports neither ``jax`` nor the JAX package.  A resumed run repeats the
 same float32 operations on the same values as the uninterrupted one, so
 losses and parameters are held equal, bit for bit."""
 import json
 import os
+import socket
+import sys
+import time
 
 import pytest
 import torch
+import torch.multiprocessing as mp
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import SHAPES
@@ -288,10 +293,80 @@ def test_main_resumes_from_its_checkpoint(tmp_path, capsys):
 
 @pytest.mark.parametrize('shape', ['2,1', '1,1,1', '4'])
 def test_main_refuses_a_mesh(shape, capsys):
+    """Outside torchrun (a world of one rank) only the default ``1,1``
+    runs: any other mesh exits 2, naming the ``--nproc-per-node`` count
+    it needs."""
     with pytest.raises(SystemExit) as e:
         TR.main(['--arch', ARCH, '--device', 'cpu', '--mesh-shape', shape])
     assert e.value.code == 2
-    assert 'ROADMAP Queue 1 item 6b' in capsys.readouterr().err
+    n = 1
+    for x in shape.split(','):
+        n *= int(x)
+    err = capsys.readouterr().err
+    assert f'--nproc-per-node {n}' in err and 'torch.distributed.run' in err
+
+
+def _cli_rank(rank, world, port, out, argv):
+    """One rank of ``python -m torch.distributed.run``: its environment,
+    then ``main(argv)``, its stdout in ``out/{rank}.txt``."""
+    os.environ.update(MASTER_ADDR='localhost', MASTER_PORT=str(port),
+                      WORLD_SIZE=str(world), RANK=str(rank),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    torch.set_num_threads(1)
+    import logging
+    logging.getLogger('torch.distributed.tensor').setLevel(logging.ERROR)
+    with open(os.path.join(out, f'{rank}.txt'), 'w') as f:
+        sys.stdout = f
+        TR.main(argv)
+        f.flush()
+
+
+def _torchrun(world, argv, out, timeout=300):
+    """``main(argv)`` on ``world`` spawned ranks; rank 0's output."""
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context('spawn')
+    procs = [ctx.Process(target=_cli_rank, args=(r, world, port, out, argv))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + timeout
+    try:
+        while any(p.exitcode is None for p in procs):
+            assert all(p.exitcode in (None, 0) for p in procs) and \
+                time.time() < deadline, [p.exitcode for p in procs]
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    with open(os.path.join(out, '0.txt')) as f:
+        return f.read()
+
+
+def test_main_trains_and_resumes_on_a_2x2_mesh(tmp_path):
+    """``--mesh-shape 2,2 --device cpu --backend gloo`` under four ranks:
+    it trains, prints on rank 0 only, saves the mesh in its checkpoint,
+    and a second launch resumes from it."""
+    ckpt = tmp_path / 'ckpt'
+    args = ['--arch', ARCH, '--preset', 'smoke', '--batch', '4', '--seq',
+            '8', '--device', 'cpu', '--backend', 'gloo', '--mesh-shape',
+            '2,2', '--ckpt', str(ckpt)]
+    (tmp_path / 'a').mkdir()
+    out = _torchrun(4, args + ['--steps', '3'], str(tmp_path / 'a'))
+    assert '[train] step=0 loss=' in out and '[train] done. loss' in out
+    assert all(os.path.getsize(tmp_path / 'a' / f'{r}.txt') == 0
+               for r in (1, 2, 3))
+    assert CheckpointManager(str(ckpt)).latest_step() == 3
+    with open(ckpt / 'step_00000003' / 'meta.json') as f:
+        assert json.load(f)['mesh'] == {'shape': [2, 2],
+                                        'axes': ['data', 'model']}
+    (tmp_path / 'b').mkdir()
+    out = _torchrun(4, args + ['--steps', '5'], str(tmp_path / 'b'))
+    assert '[train] resumed from step 3' in out and '[train] done.' in out
+    assert CheckpointManager(str(ckpt)).latest_step() == 5
 
 
 def test_trainer_asks_for_the_gpu_by_default(monkeypatch):

@@ -79,6 +79,23 @@ MESH_SERVING_MODULES = [
     'src/repro_torch/serving/metrics.py',
 ]
 
+# the sharded trainer's modules: the sharding rules, the training meshes,
+# gradient compression, and the modules that now take DTensors
+SHARDED_TRAINING_MODULES = [
+    'src/repro_torch/distributed/sharding.py',
+    'src/repro_torch/distributed/compression.py',
+    'src/repro_torch/launch/mesh.py',
+    'src/repro_torch/launch/train.py',
+    'src/repro_torch/launch/steps.py',
+    'src/repro_torch/optim/adamw.py',
+    'src/repro_torch/checkpoint/manager.py',
+    'src/repro_torch/models/layers.py',
+    'src/repro_torch/models/attention.py',
+    'src/repro_torch/models/moe.py',
+    'src/repro_torch/models/ssm.py',
+    'src/repro_torch/models/transformer.py',
+]
+
 
 # the DDPM path and the rest of the diffusion side: the schedules and the
 # loss, the samplers, the pipeline's DDPM and DeepCache entries, the image
@@ -117,7 +134,7 @@ def test_source_never_imports_jax_or_the_reference(source):
 @pytest.mark.parametrize('source', SERVING_FEATURE_MODULES
                          + SERVING_CLI_MODULES + LM_FAMILY_MODULES
                          + TRAINING_MODULES + MESH_SERVING_MODULES
-                         + DDPM_MODULES)
+                         + DDPM_MODULES + SHARDED_TRAINING_MODULES)
 def test_serving_feature_modules_are_covered(source):
     assert source in SOURCES
     mods = {m.split('.')[0] for m in _imported_modules(ROOT / source)}
