@@ -219,6 +219,24 @@ Phases, each printing its own lines:
    config of ``TRAIN_SMALL_ARCHS`` on that (2, 2) card mesh against the
    single-device step on the card, within ``MESH_RTOL``.  A rank that
    fails fails the phase.
+15. the dry run (``repro_torch.launch.dryrun``), in a process of its own
+   (a fake process group per mesh; phase 14 owns this one's), launching
+   no kernel (its counters reported at 0): the step traced on fake CPU
+   tensors over a fake ``DeviceMesh``, priced on the H100's data-sheet
+   peaks.  (a) phase 11 (b)'s train step (InternLM2-1.8B at full width
+   and depth, float32, remat 'full', 4 x 1024 tokens) on a (1, 1) mesh:
+   its FLOPs equal ``FlopCounterMode``'s over phase 11's extra step on
+   the card (``DRYRUN_FLOPS_RTOL``) and lie within ``DRYRUN_MODEL_RTOL``
+   of phase 11's model FLOPs; its peak within ``DRYRUN_PEAK_RTOL`` of
+   phase 11's measured peak; no roofline term above
+   ``DRYRUN_TERM_SLACK`` times phase 11's steady step.  (b) phase 7's
+   prefill (4 x 1000 tokens, float32 parameters and cache) on a (1, 1)
+   mesh: peak, FLOPs (against 2 x the blocks' matmul weights x tokens,
+   the head at the last token, and the plain version's attention) and
+   terms against phase 7's measured prefill.  (c) InternLM2-1.8B's
+   ``train_4k``, ``prefill_32k`` and ``decode_32k`` on the fake (16, 16)
+   mesh of 256 ranks at full width: each record's roofline row and its
+   trace's seconds; every count above 0, within ``DRYRUN_TIMEOUT_S``.
 
 Every phase prints its seconds (``[time]``).
 
@@ -415,6 +433,23 @@ MESH_LAYERS, MESH_BATCH, MESH_SEQ, MESH_STEPS = 2, 4, 256, 3
 MESH_RTOL = 1e-4
 MESH_OUT = ROOT / 'build' / 'mesh-train'
 MESH_TIMEOUT_S = 600
+# phase 15, the dry run.  (a) on a (1, 1) mesh every local op is the
+# step's own, so the FLOPs are FlopCounterMode's formulas on the same
+# shapes as on the card: equal up to the float sum's rounding.  Phase
+# 11's model FLOPs count the matmuls as 2 m n k too (6 N tokens, the remat
+# forward, attention's two products four times), so the 5% covers what it
+# leaves out.  The peak: live storage against the caching allocator's
+# allocated bytes, which rounds each block up (512 B) and holds cuBLAS's
+# workspace.  A roofline term is a bound, so none may exceed the step the
+# card took (5% for the clock).  (c) three full-width traces on 256 fake
+# ranks, their probes included
+DRYRUN_FLOPS_RTOL = 1e-6
+DRYRUN_MODEL_RTOL = 0.05
+DRYRUN_PEAK_RTOL = 0.10
+DRYRUN_TERM_SLACK = 1.05
+DRYRUN_CELLS = ('train_4k', 'prefill_32k', 'decode_32k')
+DRYRUN_PHASE_S = 300
+DRYRUN_TIMEOUT_S = 900
 # (BH, S, T, d, causal, q dtype, k/v dtype): the InternLM2-1.8B prefill
 # (4 x 16 heads, 1000 tokens, not a multiple of the 64-row tile) in the
 # path's float32, all-bf16, and float32 q over a bf16 cache; the
@@ -431,6 +466,10 @@ FLASH_SHAPES = [
     (6, 128, 384, 64, False, 'float32', 'float32'),
     (6, 100, 100, 64, True, 'float32', 'float32'),
 ]
+
+# each full-width LM's fp32 serve_lm run (phases 7, 9, 10): its prefill
+# seconds and peak GiB, which phase 15 (b) reads for InternLM2
+SERVE_LM_FP32 = {}
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12           # dense int8 tensor-core peak
@@ -1745,6 +1784,10 @@ def lm_full(torch, numpy, ops, card, cfg, tag, w8a8_rtol=None):
         elif encdec:
             check(torch.equal(seqs, seqs_fp32), f'{cfg.name}: w8a8 tokens '
                   'differ from fp32 ones, though its steps ignore quant')
+        if not quant:
+            SERVE_LM_FP32[cfg.name] = {
+                'prefill_s': timing['prefill_s'],
+                'peak': torch.cuda.max_memory_allocated() / 2**30}
         print(f'[{tag}] {card}: {cfg.name} {qtag} serve_lm batch '
               f'{LM_BATCH}, prompt {LM_PROMPT}, {LM_TOKENS} new tokens: '
               f'prefill {timing["prefill_s"]:.3f} s, decode {LM_TOKENS - 1} '
@@ -2276,9 +2319,9 @@ def train_full(torch, ops, card):
     one more step on step 0's batch from the initial state lowering that
     batch's loss.  Prints the parameter count, the seconds of the first
     step and of the steady ones, tokens/s, model FLOPs a step (6 N
-    tokens over the matmul parameters, the remat forward of the blocks,
-    attention's scores and products) and their share of the float32
-    peak, and the peak memory."""
+    tokens over the matmul parameters, the remat forward of the blocks
+    but their last product, attention's scores and products) and their
+    share of the float32 peak, and the peak memory."""
     from repro_torch.configs.registry import get
     from repro_torch.data.pipeline import TokenPipelineConfig, token_batch
     from repro_torch.launch import steps as ST
@@ -2304,7 +2347,13 @@ def train_full(torch, ops, card):
     tokens = TRAIN_BATCH * TRAIN_SEQ
     attn = 4 * 4 * TRAIN_BATCH * cfg.n_heads * TRAIN_SEQ ** 2 * cfg.hd * \
         attention_layers(cfg)            # forward, 2x backward, remat
-    flops = 6 * (mm_blocks + mm_head) * tokens + 2 * mm_blocks * tokens + attn
+    # the remat forward stops at the last tensor the backward needs
+    # (non-reentrant checkpointing's early stop): each block's MLP down
+    # projection is not run again
+    mm_down = sum(m.w.numel() for n, m in tr.params.blocks.named_modules()
+                  if n.endswith('mlp.down'))
+    flops = 6 * (mm_blocks + mm_head) * tokens + \
+        2 * (mm_blocks - mm_down) * tokens + attn
     init = [p.detach().to('cpu', copy=True)
             for p in ST.train_params(tr.params).values()]
     step_fn = tr.step_fn
@@ -2349,7 +2398,9 @@ def train_full(torch, ops, card):
     del init
     batch0 = token_batch(data, 0, device='cuda')
     ops.reset_launches()
-    _, _, m = step_fn(tr.params, init_adamw(params), batch0)
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as fc:   # phase 15 (a) reads it
+        _, _, m = step_fn(tr.params, init_adamw(params), batch0)
     with torch.no_grad():
         after = ST.train_loss(tr.params, cfg, batch0, torch.float32).item()
     before = m['loss'].item()
@@ -2357,7 +2408,8 @@ def train_full(torch, ops, card):
     print(f"[train-full] {cfg.name}: one more step on step 0's batch from "
           f'the initial state: loss {before:.5f} (the run\'s first '
           f'{losses[0]:.5f}, expected {expected0:.3f}) -> {after:.5f}; '
-          f'kernel launches {extra}')
+          f'kernel launches {extra}; FlopCounterMode '
+          f'{fc.get_total_flops() / 1e12:.4f} TFLOPs')
     check(abs(before - losses[0]) <= 1e-5 * losses[0],
           f'{cfg.name}: the restored initial state gives loss {before}, '
           f'the run\'s first step {losses[0]}')
@@ -2368,7 +2420,8 @@ def train_full(torch, ops, card):
     gc.collect()
     torch.cuda.empty_cache()
     return {'losses': losses, 'norms': norms, 'first': times[0],
-            'steady': steady, 'peak': peak}
+            'steady': steady, 'peak': peak, 'flops': flops,
+            'flops_counted': fc.get_total_flops()}
 
 
 def free_port() -> int:
@@ -3088,6 +3141,153 @@ def ddpm_step_full(torch, ops, card, pipe, enc):
     return launches
 
 
+def phase_dryrun(card, single, prefill):
+    """Phase 15: ``dryrun_main`` in a process of its own (the dry run's
+    fake process groups cannot share one with phase 14's), with phase 11
+    (b)'s and phase 7's measured numbers; its lines are printed here and
+    any failure fails the run."""
+    arg = json.dumps({'card': card, 'train': {
+        k: single[k] for k in ('steady', 'peak', 'flops', 'flops_counted')},
+        'prefill': prefill})
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          '--dryrun', arg], capture_output=True, text=True,
+                         timeout=DRYRUN_TIMEOUT_S, cwd=ROOT)
+    for line in out.stdout.splitlines():
+        print(line)
+    if out.returncode:
+        print(out.stderr[-6000:], file=sys.stderr)
+    check(out.returncode == 0, f'phase 15 (the dry run) exited '
+          f'{out.returncode} after {time.perf_counter() - t0:.1f} s')
+
+
+def dryrun_row(torch, r, card, what):
+    """Print a dry-run record: its roofline terms, peak and counts."""
+    rf, c, mem = r['roofline'], r['cost'], r['memory']
+    coll = r['collectives_scanned_body']
+    print(f'[dryrun] {what}: trace {r["compile_s"]} s; FLOPs '
+          f'{c["flops_per_device"] / 1e12:.4f} T, bytes accessed '
+          f'{c["bytes_accessed_per_device"] / 1e9:.3f} GB, collectives '
+          f'{coll["count_per_kind"]} weighted {c["collective_bytes_per_device"] / 1e9:.4f} GB '
+          f'per device; compute {rf["compute_s"]:.4g} s, memory '
+          f'{rf["memory_s"]:.4g} s, collective {rf["collective_s"]:.4g} s, '
+          f'dominant {rf["dominant"]}; arguments '
+          f'{mem["argument_bytes"] / 2**30:.3f} GiB, peak '
+          f'{mem["peak_bytes_per_device"] / 2**30:.3f} GiB; fallbacks '
+          f'{r["fallbacks"]} (H100 data-sheet peaks; the machine: {card})')
+    check(c['flops_per_device'] > 0 and c['bytes_accessed_per_device'] > 0
+          and mem['peak_bytes_per_device'] > 0
+          and rf['dominant'] in ('compute_s', 'memory_s', 'collective_s'),
+          f'dry run {what}: {r}')
+    if 'probe_raw' in c:
+        ext = c['probe_raw']['extrapolated']
+        check(ext[0] == c['flops_per_device']
+              and ext[2] == c['collective_bytes_per_device'],
+              f'dry run {what}: the probe extrapolates to {ext}, the '
+              f'full-depth trace counts {c}')
+
+
+def dryrun_main(arg) -> int:
+    """Phase 15 (see the module docstring); ``arg`` holds phase 11 (b)'s
+    and phase 7's measured numbers and the card's line."""
+    import torch
+    sys.path.insert(0, str(ROOT / 'src'))
+    from repro_torch.configs import base as CB
+    from repro_torch.configs.registry import get
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import roofline as RF
+    from repro_torch.models import layers as L
+    from repro_torch.optim.adamw import AdamWConfig
+    t_start = time.perf_counter()
+    card, train, prefill = arg['card'], arg['train'], arg['prefill']
+    ops.reset_launches()
+    cfg = get(LM_ARCH)
+    one = DR.fake_mesh((1, 1), ('data', 'model'))
+
+    # (a) phase 11 (b)'s train step
+    CB.SHAPES['phase11'] = CB.ShapeConfig('phase11', TRAIN_SEQ, TRAIN_BATCH,
+                                          'train')
+    r = DR.run_cell(LM_ARCH, 'phase11', False, mesh=one, dtype=torch.float32,
+                    opt_cfg=AdamWConfig(lr=1e-3, warmup_steps=2,
+                                        total_steps=TRAIN_STEPS))
+    dryrun_row(torch, r, card, f'(a) {LM_ARCH} train {TRAIN_BATCH} x '
+               f'{TRAIN_SEQ} float32 remat {cfg.remat} on (1, 1)')
+    flops = r['cost']['flops_per_device']
+    peak = r['memory']['peak_bytes_per_device'] / 2**30
+    terms = {k: r['roofline'][k] for k in ('compute_s', 'memory_s',
+                                           'collective_s')}
+    print(f'[dryrun] (a) FLOPs {flops:.6e} against FlopCounterMode over '
+          f'phase 11\'s step on the card {train["flops_counted"]:.6e} '
+          f'(relative {abs(flops / train["flops_counted"] - 1):.2e}) and '
+          f'phase 11\'s model FLOPs {train["flops"]:.6e} (relative '
+          f'{abs(flops / train["flops"] - 1):.3%}); peak {peak:.3f} GiB '
+          f'against {train["peak"]:.3f} measured ({peak / train["peak"] - 1:+.2%}); '
+          f'terms {terms} against the steady step {train["steady"]:.3f} s; '
+          f'share of the float32 peak {flops / train["steady"] / F32_OPS_PER_S:.1%}'
+          f' (phase 11: {train["flops"] / train["steady"] / F32_OPS_PER_S:.1%})')
+    check(abs(flops / train['flops_counted'] - 1) <= DRYRUN_FLOPS_RTOL,
+          'dry run (a): FLOPs differ from the card\'s step')
+    check(abs(flops / train['flops'] - 1) <= DRYRUN_MODEL_RTOL,
+          'dry run (a): FLOPs off phase 11\'s model FLOPs')
+    check(abs(peak / train['peak'] - 1) <= DRYRUN_PEAK_RTOL,
+          'dry run (a): peak off the measured peak')
+    check(max(terms.values()) <= DRYRUN_TERM_SLACK * train['steady'],
+          'dry run (a): a roofline term exceeds the measured step')
+
+    # (b) phase 7's prefill at float32
+    CB.SHAPES['phase7'] = CB.ShapeConfig('phase7', LM_PROMPT, LM_BATCH,
+                                         'prefill')
+    r = DR.run_cell(LM_ARCH, 'phase7', False, mesh=one, dtype=torch.float32,
+                    serve_params_bf16=False)
+    dryrun_row(torch, r, card, f'(b) {LM_ARCH} prefill {LM_BATCH} x '
+               f'{LM_PROMPT} float32 on (1, 1)')
+    model = DR._meta_model(cfg)
+    mm = sum(m.w.numel() for m in model.blocks.modules()
+             if isinstance(m, L.Linear))
+    keys = -(-LM_PROMPT // 128) * 128      # the plain version's key blocks
+    attn = 4 * LM_BATCH * cfg.n_heads * LM_PROMPT * keys * cfg.hd * \
+        cfg.n_layers
+    want = 2 * mm * LM_BATCH * LM_PROMPT + \
+        2 * model.lm_head.w.numel() * LM_BATCH + attn
+    flops = r['cost']['flops_per_device']
+    peak = r['memory']['peak_bytes_per_device'] / 2**30
+    terms = {k: r['roofline'][k] for k in ('compute_s', 'memory_s',
+                                           'collective_s')}
+    print(f'[dryrun] (b) FLOPs {flops:.6e} against 2 N tokens + the head + '
+          f'attention {want:.6e} (relative {abs(flops / want - 1):.3%}); '
+          f'peak {peak:.3f} GiB against phase 7\'s {prefill["peak"]:.3f} '
+          f'({peak / prefill["peak"] - 1:+.2%}); terms {terms} against the '
+          f'prefill {prefill["prefill_s"]:.3f} s')
+    check(abs(flops / want - 1) <= DRYRUN_MODEL_RTOL,
+          'dry run (b): FLOPs off 2 N tokens + attention')
+    check(abs(peak / prefill['peak'] - 1) <= DRYRUN_PEAK_RTOL,
+          'dry run (b): peak off phase 7\'s measured peak')
+    check(max(terms.values()) <= DRYRUN_TERM_SLACK * prefill['prefill_s'],
+          'dry run (b): a roofline term exceeds the measured prefill')
+
+    # (c) production: the fake (16, 16) mesh of 256 ranks
+    out_dir = ROOT / 'build' / 'dryrun-smoke'
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    for cell in DRYRUN_CELLS:
+        r = DR.run_cell(LM_ARCH, cell, False, out_dir=str(out_dir))
+        dryrun_row(torch, r, card, f'(c) {LM_ARCH} {cell} on (16, 16), '
+                   f'{r["devices"]} fake ranks')
+    for line in RF.report(str(out_dir)).splitlines():
+        print(f'[dryrun] (c) {line}')
+    t_c = time.perf_counter() - t0
+    DR.release_mesh()
+    launches = ops.launch_counts()
+    t_all = time.perf_counter() - t_start
+    print(f'[dryrun] (c) {t_c:.1f} s; the phase {t_all:.1f} s in all; kernel '
+          f'launches {launches}')
+    check(t_all <= DRYRUN_PHASE_S, f'dry run: {t_all:.1f} s, over '
+          f'{DRYRUN_PHASE_S} s')
+    check(sum(launches.values()) == 0, f'dry run launched kernels {launches}')
+    return 0
+
+
 def main() -> int:
     import numpy
     import torch
@@ -3255,6 +3455,10 @@ def main() -> int:
     phase_mesh_train(torch, ops, card, single)
     lap('14 (sharded training)')
 
+    # phase 15: the dry run, in a process of its own; no kernel
+    phase_dryrun(card, single, SERVE_LM_FP32[LM_ARCH])
+    lap('15 (dry run)')
+
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():
         s = summary[name]
@@ -3274,4 +3478,6 @@ def main() -> int:
 
 
 if __name__ == '__main__':
+    if sys.argv[1:2] == ['--dryrun']:
+        sys.exit(dryrun_main(json.loads(sys.argv[2])))
     sys.exit(main())

@@ -47,3 +47,11 @@ PAPER_PARAM_COUNTS = {          # Table I, millions
     'ldm_beds': 274.05,
     'sd_v1_4': 859.52,
 }
+
+# Table I: IS reduction after 8-bit quantization (%)
+PAPER_IS_REDUCTION = {
+    'ddpm_cifar10': 0.44,
+    'ldm_churches': 0.43,
+    'ldm_beds': 5.26,
+    'sd_v1_4': 6.66,
+}

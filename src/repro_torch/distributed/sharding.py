@@ -328,6 +328,58 @@ def split_dim(x, dim: int, sizes) -> Any:
     return x.reshape(shape)
 
 
+def row_shard(x, dim: int) -> Tuple[int, int]:
+    """(first index, count) of this rank's shard of the DTensor ``x``
+    along ``dim`` (the mesh dims that shard it in mesh order, the first
+    the major one; ``dim`` divides evenly)."""
+    mesh, idx, n = x.device_mesh, 0, 1
+    for i, pl in enumerate(x.placements):
+        if pl.is_shard(dim):
+            idx, n = idx * mesh.size(i) + mesh.get_local_rank(i), \
+                n * mesh.size(i)
+    rows = x.shape[dim] // n
+    return idx * rows, rows
+
+
+def write_rows(cache, x, start: int) -> None:
+    """``cache[:, start:start + S] = x`` in place, S = ``x.shape[1]``
+    (a KV cache's new rows).  On a DTensor cache each rank writes the
+    rows that fall in its own shard: ``x`` is laid out as the cache on
+    every dim but dim 1, which it holds whole (a plain ``x`` is taken as
+    replicated).  DTensor's own slice assignment fails on a cache whose
+    sequence dim is sharded (``cache_pspecs`` shards it when the batch or
+    the heads do not divide the mesh)."""
+    S = x.shape[1]
+    if not is_dtensor(cache):
+        cache[:, start:start + S] = x
+        return
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh, pls = cache.device_mesh, list(cache.placements)
+    if not is_dtensor(x):
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim)
+    xl = x.redistribute(mesh, [Replicate() if pl.is_shard(1) else pl
+                               for pl in pls]).to_local()
+    lo, rows = row_shard(cache, 1)
+    a, b = max(start, lo), min(start + S, lo + rows)
+    if a < b:
+        cache.to_local()[:, a - lo:b - lo] = xl[:, a - start:b - start]
+
+
+def merge_dims(x, dim: int) -> Any:
+    """``x`` with dims ``dim`` and ``dim + 1`` merged (a reshape).  On a
+    DTensor the result is held in the layout the reshape gives it, its
+    gradient included: a gradient that arrives sharded over mesh dims
+    that ``x.shape[dim]`` does not divide (attention's heads merged before
+    the output projection, whose backward shards the merged dim over
+    'model') would fail the reshape's backward."""
+    dim = dim % x.dim()
+    y = x.reshape(tuple(x.shape[:dim]) + (x.shape[dim] * x.shape[dim + 1],)
+                  + tuple(x.shape[dim + 2:]))
+    if is_dtensor(y):
+        y = y.redistribute(y.device_mesh, y.placements)
+    return y
+
+
 class _ContiguousGrad(torch.autograd.Function):
     """The identity, whose gradient comes back contiguous."""
 

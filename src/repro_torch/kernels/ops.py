@@ -6,8 +6,9 @@ GroupNorm group fallback, folding heads into the batch, or reading
 grouped heads in place) and dispatch by
 the tensor's device: a CUDA tensor always launches the hand-written
 kernel, a CPU tensor runs the plain PyTorch version, and any other
-device raises.  There is no switch and no fallback from one to the
-other.
+device raises, as does a fake or ``meta`` tensor that claims CUDA (the
+dry run's stand-ins have no memory to hand a kernel).  There is no
+switch and no fallback from one to the other.
 
 Gradients: the plain versions are differentiable.  On CUDA,
 ``fused_gn_swish`` goes through ``GNSwish`` (the kernel forward, a plain
@@ -43,10 +44,20 @@ def reset_launches() -> None:
 
 def _on_cuda(t: torch.Tensor, op: str) -> bool:
     if t.device.type == 'cuda':
+        if _without_memory(t):
+            raise ValueError(f'{op}: a fake tensor on {t.device} has no '
+                             'memory for the kernel to read')
         return True
     if t.device.type == 'cpu':
         return False
     raise ValueError(f'{op}: no kernel for device {t.device}')
+
+
+def _without_memory(t: torch.Tensor) -> bool:
+    """A ``FakeTensor`` (the dry run's stand-ins) or a ``meta`` tensor:
+    shapes and types with no device memory behind them."""
+    from torch._subclasses.fake_tensor import is_fake
+    return t.is_meta or is_fake(t)
 
 
 def _grad_wanted(*tensors) -> bool:

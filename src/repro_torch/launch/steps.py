@@ -122,6 +122,13 @@ def init_serve_state(cfg: ArchConfig, batch: int, max_len: int,
                                      device)}
 
 
+def _greedy(logits: torch.Tensor) -> torch.Tensor:
+    """The greedy next token, int32; on a mesh over each rank's rows with
+    the vocabulary gathered (DTensor's argmax over a sharded vocabulary
+    reads global offsets from the data, which fake tensors lack)."""
+    return SH.shard_hint(logits, 'dp').argmax(dim=-1).to(torch.int32)
+
+
 def build_prefill_step(cfg: ArchConfig, dtype: torch.dtype = torch.bfloat16,
                        quant: bool = False) -> Callable:
     """(params, serve_state, batch) -> (next_token, serve_state); the
@@ -140,7 +147,7 @@ def build_prefill_step(cfg: ArchConfig, dtype: torch.dtype = torch.bfloat16,
                                          state['cache'], dtype=dtype,
                                          quant=quant)
             state = {'cache': cache}
-        return logits.argmax(dim=-1).to(torch.int32), state
+        return _greedy(logits), state
 
     return prefill
 
@@ -158,7 +165,7 @@ def build_decode_step(cfg: ArchConfig, dtype: torch.dtype = torch.bfloat16,
         else:
             logits, cache = T.lm_decode(params, cfg, token, state['cache'],
                                         pos, dtype=dtype, quant=quant)
-        return logits.argmax(dim=-1).to(torch.int32), dict(state, cache=cache)
+        return _greedy(logits), dict(state, cache=cache)
 
     return decode
 

@@ -82,9 +82,10 @@ def mrope(x: torch.Tensor, pos3: torch.Tensor, theta: float,
         raise ValueError(f'M-RoPE sections {sections} do not cover the '
                          f'{hd // 2} frequency channels of head dim {hd}')
     freqs = _rope_freqs(hd, theta, x.device)
-    sec_id = torch.repeat_interleave(
-        torch.arange(len(sections), device=x.device),
-        torch.tensor(sections, device=x.device))             # (hd/2,)
+    # (hd/2,) stream ids, spelled out so the shape needs no data (the dry
+    # run's fake tensors)
+    sec_id = torch.tensor([i for i, n in enumerate(sections)
+                           for _ in range(n)], device=x.device)
     return _rotate(x, pos3.float()[..., sec_id] * freqs)
 
 
@@ -141,6 +142,52 @@ def core_on_shards(core, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if SH.is_dtensor(q) and q.placements != k.placements:
         q = q.redistribute(q.device_mesh, k.placements)
     return SH.on_shards(lambda a, b, c: core(a, b, c, **kw), 1, q, k, v)
+
+
+def seq_parallel_core(q, k, v, *, q_offset: int, kv_len: int,
+                      scale: Optional[float] = None):
+    """``gqa_core(q, k, v, causal=True, ...)`` on a mesh whose cache rows
+    (k/v dim 1) are sharded (``cache_pspecs`` shards them when the batch
+    or the KV heads do not divide the mesh): each rank attends over its
+    own rows, and the softmax's max and sums are combined over the mesh
+    dims that shard the rows (one max and one sum all-reduce; the
+    flash-decoding split).  DTensor's own einsum over the sharded rows
+    fails.  Serving only: no gradient."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh, kpl = k.device_mesh, list(k.placements)
+    whole = [Replicate() if pl.is_shard(1) else pl for pl in kpl]
+    ql = q.redistribute(mesh, whole).to_local() if SH.is_dtensor(q) else q
+    kl, vl = k.to_local(), v.to_local()
+    lo, rows = SH.row_shard(k, 1)
+    B, S, H, hd = ql.shape
+    G = kl.shape[2]
+    if scale is None:
+        scale = hd ** -0.5
+    qg = ql.reshape(B, S, G, H // G, hd).float() * scale
+    s = torch.einsum('bsgrd,btgd->bgrst', qg, kl.float())
+    t_pos = torch.arange(lo, lo + rows, device=ql.device)
+    q_pos = torch.arange(S, device=ql.device) + q_offset
+    mask = (t_pos[None, :] <= q_pos[:, None]) & (t_pos[None, :] < kv_len)
+    s = torch.where(mask, s, NEG_INF)
+
+    def combined(x, dims, op):
+        # x laid out by k's batch (dim 0) and head (dim 2) shards at
+        # dims[0] and dims[1], partial over the row-sharding mesh dims
+        pls = [Partial(op) if pl.is_shard(1) else
+               pl if pl.is_replicate() else
+               type(pl)(dims[0] if pl.dim == 0 else dims[1]) for pl in kpl]
+        full = [Replicate() if pl.is_partial() else pl for pl in pls]
+        return DTensor.from_local(x, mesh, pls).redistribute(
+            mesh, full).to_local()
+
+    m = combined(s.amax(dim=-1), (0, 1), 'max')              # (B, G, r, S)
+    e = torch.exp(s - m[..., None])
+    den = combined(e.sum(dim=-1), (0, 1), 'sum')
+    num = combined(torch.einsum('bgrst,btgd->bsgrd', e, vl.float()),
+                   (0, 2), 'sum')
+    out = (num / den.permute(0, 3, 1, 2)[..., None]).reshape(B, S, H, hd)
+    pls = [Replicate() if pl.is_shard(1) else pl for pl in kpl]
+    return DTensor.from_local(out.to(q.dtype), mesh, pls)
 
 
 def flash_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -237,15 +284,23 @@ def attention(p: Attention, cfg: ArchConfig, x: torch.Tensor, *,
     else:                                        # prefill or decode
         k, v = _project_kv(p, cfg, x, pos)
         ck, cv = cache['k'], cache['v']
-        ck[:, cache_pos:cache_pos + S] = k.to(ck.dtype)
-        cv[:, cache_pos:cache_pos + S] = v.to(cv.dtype)
+        k, v = k.to(ck.dtype), v.to(cv.dtype)
+        SH.write_rows(ck, k, cache_pos)
+        SH.write_rows(cv, v, cache_pos)
         if isinstance(cache_pos, int) and cache_pos == 0:
-            out = flash_core(q, ck[:, :S], cv[:, :S], causal=True)
+            if SH.is_dtensor(ck):     # the rows just written, per rank
+                out = core_on_shards(flash_core, q, k, v, causal=True)
+            else:
+                out = flash_core(q, ck[:, :S], cv[:, :S], causal=True)
+        elif SH.is_dtensor(ck) and any(pl.is_shard(1)
+                                       for pl in ck.placements):
+            out = seq_parallel_core(q, ck, cv, q_offset=cache_pos,
+                                    kv_len=cache_pos + S)
         else:
-            out = gqa_core(q, ck, cv, causal=True, q_offset=cache_pos,
-                           kv_len=cache_pos + S)
+            out = core_on_shards(gqa_core, q, ck, cv, causal=True,
+                                 q_offset=cache_pos, kv_len=cache_pos + S)
     out = SH.shard_hint(out, 'dp', None, tp, None)
-    y = p.wo(out.reshape(B, S, H * hd), pol)
+    y = p.wo(SH.merge_dims(out, 2), pol)
     return SH.shard_hint(y, 'dp', None, None), cache
 
 
@@ -287,6 +342,27 @@ def _raw(lin: L.Linear) -> torch.Tensor:
     return w.q.float() * w.scale if isinstance(w, QTensor) else w.float()
 
 
+def _mla_absorbed(q_nope, q_pe, cc, cp, w_uk, w_uv, cache_pos: int,
+                  scale: float) -> torch.Tensor:
+    """The absorbed MLA core over the cache: q_nope (B, S, H, nope), q_pe
+    (B, S, H, rpe), cache c_kv (B, T, rank) and k_pe (B, T, rpe), the
+    latent projections w_uk (rank, H, nope) and w_uv (rank, H, vd) ->
+    (B, S, H, vd); rows past ``cache_pos + S`` masked."""
+    S, T = q_nope.shape[1], cc.shape[1]
+    ccf = cc.float()
+    # q_nope' = q_nope @ W_uk^T: the query in the latent space
+    q_lat = torch.einsum('bshn,rhn->bshr', q_nope, w_uk)
+    s = (torch.einsum('bshr,btr->bhst', q_lat, ccf)
+         + torch.einsum('bshp,btp->bhst', q_pe, cp.float())) * scale
+    t_pos = torch.arange(T, device=cc.device)
+    q_pos = torch.arange(S, device=cc.device) + cache_pos
+    mask = (t_pos[None, :] <= q_pos[:, None]) & \
+        (t_pos[None, :] < cache_pos + S)
+    pr = lse_softmax(torch.where(mask, s, NEG_INF), dim=-1)
+    o_lat = torch.einsum('bhst,btr->bshr', pr, ccf)
+    return torch.einsum('bshr,rhv->bshv', o_lat, w_uv)
+
+
 def mla_attention(p: MLA, cfg: ArchConfig, x: torch.Tensor, *,
                   pos: Optional[torch.Tensor] = None,
                   cache: Optional[Dict[str, torch.Tensor]] = None,
@@ -320,23 +396,18 @@ def mla_attention(p: MLA, cfg: ArchConfig, x: torch.Tensor, *,
 
     if cache is not None and cache_pos is not None:      # absorbed path
         cc, cp = cache['c_kv'], cache['k_pe']
-        cc[:, cache_pos:cache_pos + S] = c_kv.to(cc.dtype)
-        cp[:, cache_pos:cache_pos + S] = k_pe.to(cp.dtype)
-        T = cc.shape[1]
-        ccf = cc.float()
-        # q_nope' = q_nope @ W_uk^T: the query in the latent space
-        q_lat = torch.einsum('bshn,rhn->bshr', q_nope,
-                             _raw(p.w_uk).reshape(rank, H, nope))
-        s = (torch.einsum('bshr,btr->bhst', q_lat, ccf)
-             + torch.einsum('bshp,btp->bhst', q_pe, cp.float())) * scale
-        t_pos = torch.arange(T, device=x.device)
-        q_pos = torch.arange(S, device=x.device) + cache_pos
-        mask = (t_pos[None, :] <= q_pos[:, None]) & \
-            (t_pos[None, :] < cache_pos + S)
-        pr = lse_softmax(torch.where(mask, s, NEG_INF), dim=-1)
-        o_lat = torch.einsum('bhst,btr->bshr', pr, ccf)
-        out = torch.einsum('bshr,rhv->bshv', o_lat,
-                           _raw(p.w_uv).reshape(rank, H, vd))
+        SH.write_rows(cc, c_kv.to(cc.dtype), cache_pos)
+        SH.write_rows(cp, k_pe.to(cp.dtype), cache_pos)
+        w_uk = _raw(p.w_uk).reshape(rank, H, nope)
+        w_uv = _raw(p.w_uv).reshape(rank, H, vd)
+        # per rank on its batch rows and heads (``on_shards``): each
+        # needs the whole cache of its rows and its heads' whole latent
+        # projections; DTensor's einsums over the latent products fail
+        cc, cp = (SH.shard_hint(t, 'dp') for t in (cc, cp))
+        w_uk, w_uv = (SH.shard_hint(w, None, tp, None) for w in (w_uk, w_uv))
+        out = SH.on_shards(lambda qn, qp, c, kp, uk, uv: _mla_absorbed(
+            qn, qp, c, kp, uk, uv, cache_pos, scale), 1,
+            q_nope, q_pe, cc, cp, w_uk, w_uv)
     else:                                                # decompressed
         k_nope = SH.shard_hint(SH.split_dim(p.w_uk(c_kv), -1, (H, nope)),
                                'dp', None, tp, None)

@@ -194,10 +194,13 @@ def token_xent(logits: torch.Tensor, labels: torch.Tensor,
         pad_mask = torch.arange(vocab, device=logits.device) < real_vocab
         logits = torch.where(pad_mask, logits, -1e30)
     logz = torch.logsumexp(logits, dim=-1)
-    # on a mesh the gold logit is read with the vocabulary replicated:
-    # DTensor's gather along a sharded dim fails on a (B, S) result
+    # on a mesh the gold logit is read with the vocabulary replicated, on
+    # each rank's own rows: DTensor's gather along a sharded dim fails on
+    # a (B, S) result, and its gather on batch-sharded rows gathers the
+    # whole batch's logits
     whole = SH.shard_hint(logits, 'dp')
-    gold = whole.gather(-1, labels.clamp_min(0)[..., None].long())[..., 0]
+    gold = SH.on_shards(lambda w, lab: w.gather(
+        -1, lab.clamp_min(0)[..., None].long())[..., 0], 1, whole, labels)
     mask = (labels >= 0).float()
     return ((logz - gold) * mask).sum() / mask.sum().clamp_min(1.0)
 

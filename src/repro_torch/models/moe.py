@@ -133,6 +133,14 @@ def _combine(y_buf: torch.Tensor, slot: torch.Tensor, top_p: torch.Tensor,
                         top_p.to(dtype))
 
 
+def _experts(buf: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+             w_down: torch.Tensor, act) -> torch.Tensor:
+    """buf (G, E, C, d) through each expert's gated MLP -> (G, E, C, d)."""
+    h = act(torch.einsum('gecd,edf->gecf', buf, w_gate)) \
+        * torch.einsum('gecd,edf->gecf', buf, w_up)
+    return torch.einsum('gecf,efd->gecd', h, w_down)
+
+
 def moe_ffn(p: MoE, cfg: ArchConfig, x: torch.Tensor,
             quant: bool = False) -> torch.Tensor:
     """x (B, S, d) -> (B, S, d).  On a mesh the groups shard over the
@@ -164,10 +172,13 @@ def moe_ffn(p: MoE, cfg: ArchConfig, x: torch.Tensor,
     buf, slot, top_p = SH.on_shards(
         lambda a, b: _dispatch_routed(a, b, m, C), 3, xg, probs)
     buf = SH.shard_hint(buf, 'dp', 'model', None, None)      # (G, E, C, d)
-    h = act(torch.einsum('gecd,edf->gecf', buf, _wt(p.w_gate, x.dtype))) \
-        * torch.einsum('gecd,edf->gecf', buf, _wt(p.w_up, x.dtype))
-    h = SH.shard_hint(h, 'dp', 'model', None, None)          # (G, E, C, ff)
-    y_buf = torch.einsum('gecf,efd->gecd', h, _wt(p.w_down, x.dtype))
+    # each rank's groups through its experts (``on_shards``), every
+    # expert's weights gathered whole: DTensor's einsum fails on some
+    # capacities (a decode step's C = 8 over 'model')
+    ws = [SH.shard_hint(_wt(w, x.dtype), 'model', None, None)
+          for w in (p.w_gate, p.w_up, p.w_down)]
+    y_buf = SH.on_shards(lambda b, g, u, dn: _experts(b, g, u, dn, act), 1,
+                         buf, *ws)
     y_buf = SH.shard_hint(y_buf, 'dp', 'model', None, None)
     # the combine reads every expert's rows: 'model' gathered first
     y_buf = SH.shard_hint(y_buf, 'dp', None, None, None)

@@ -147,6 +147,19 @@ def _ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, state
 
 
+def _recurrence(xh, dt, A, Bm, Cm, state):
+    """One decode step of the SSM: xh (B, 1, H, P), dt (B, 1, H), A (H,),
+    Bm / Cm (B, 1, G, N), the cached state (B, H, P, N) -> y (B, 1, H, P)
+    and the new float32 state."""
+    rep = xh.shape[2] // Bm.shape[2]
+    bqh = Bm[:, 0].repeat_interleave(rep, dim=1)          # (B, H, N)
+    cqh = Cm[:, 0].repeat_interleave(rep, dim=1)
+    dA = torch.exp(dt[:, 0] * A)                          # (B, H)
+    state = state.float() * dA[:, :, None, None] \
+        + (dt[:, 0, :, None] * xh[:, 0])[..., None] * bqh[:, :, None, :]
+    return torch.einsum('bhn,bhpn->bhp', cqh, state)[:, None], state
+
+
 def mamba(p: Mamba, cfg: ArchConfig, x: torch.Tensor, *,
           cache: Optional[Dict[str, torch.Tensor]] = None,
           quant: bool = False
@@ -175,13 +188,13 @@ def mamba(p: Mamba, cfg: ArchConfig, x: torch.Tensor, *,
     A = -torch.exp(p.A_log)
 
     if cache is not None and S == 1:                      # the recurrence
-        rep = H // G
-        bqh = Bm[:, 0].repeat_interleave(rep, dim=1)      # (B, H, N)
-        cqh = Cm[:, 0].repeat_interleave(rep, dim=1)
-        dA = torch.exp(dt[:, 0] * A)                      # (B, H)
-        state = cache['state'].float() * dA[:, :, None, None] \
-            + (dt[:, 0, :, None] * xh[:, 0])[..., None] * bqh[:, :, None, :]
-        y = torch.einsum('bhn,bhpn->bhp', cqh, state)[:, None]
+        # on a mesh per rank on its batch rows, the heads whole
+        # (``on_shards``), as the chunked scan below: DTensor's einsum
+        # fails on the heads split out of the sharded channels
+        xh, dt, Bm, Cm, st = (SH.shard_hint(t, 'dp') for t in
+                              (xh, dt, Bm, Cm, cache['state']))
+        y, state = SH.on_shards(_recurrence, 2, xh, dt, SH.replicate(A),
+                                Bm, Cm, st)
     elif SH.is_dtensor(xh):               # a mesh: no cache (training)
         # the chunked scan per rank on its batch rows (``on_shards``):
         # DTensor's einsum rules cannot follow its reshapes; the heads are

@@ -108,7 +108,10 @@ def apply_block(p: Block, cfg: ArchConfig, x: torch.Tensor, *,
                                  cache_pos=cache_pos, quant=quant)
         else:
             h, _ = SSM.mamba(sub.mamba, cfg, h, cache=sub_cache, quant=quant)
-        x = x + h
+        # on a mesh the residual stream keeps the batch layout: DTensor's
+        # own choice after a product can shard the rows over 'model',
+        # which the next flattening product cannot follow
+        x = SH.shard_hint(x + h, 'dp', None, None)
         if ffn != '-':
             h = norm(sub.ffn_norm, x)
             if ffn == 'E':
@@ -116,7 +119,7 @@ def apply_block(p: Block, cfg: ArchConfig, x: torch.Tensor, *,
             else:
                 h = L.mlp(sub.mlp, h, act=cfg.act, quant=quant,
                           tp_axis='model' if cfg.model_axis_tp else None)
-            x = x + h
+            x = SH.shard_hint(x + h, 'dp', None, None)
     return x, cache
 
 

@@ -115,6 +115,15 @@ DDPM_MODULES = [
 ]
 
 
+# the dry run: the cost model on a fake mesh, the roofline report and the
+# hillclimb runs
+DRYRUN_MODULES = [
+    'src/repro_torch/launch/dryrun.py',
+    'src/repro_torch/launch/roofline.py',
+    'src/repro_torch/launch/hillclimb.py',
+]
+
+
 def _imported_modules(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -134,7 +143,8 @@ def test_source_never_imports_jax_or_the_reference(source):
 @pytest.mark.parametrize('source', SERVING_FEATURE_MODULES
                          + SERVING_CLI_MODULES + LM_FAMILY_MODULES
                          + TRAINING_MODULES + MESH_SERVING_MODULES
-                         + DDPM_MODULES + SHARDED_TRAINING_MODULES)
+                         + DDPM_MODULES + SHARDED_TRAINING_MODULES
+                         + DRYRUN_MODULES)
 def test_serving_feature_modules_are_covered(source):
     assert source in SOURCES
     mods = {m.split('.')[0] for m in _imported_modules(ROOT / source)}
