@@ -236,7 +236,27 @@ Phases, each printing its own lines:
    terms against phase 7's measured prefill.  (c) InternLM2-1.8B's
    ``train_4k``, ``prefill_32k`` and ``decode_32k`` on the fake (16, 16)
    mesh of 256 ranks at full width: each record's roofline row and its
-   trace's seconds; every count above 0, within ``DRYRUN_TIMEOUT_S``.
+   trace's seconds; every count above 0, within ``DRYRUN_TIMEOUT_S``;
+   each cell's peak beside its figure before the vocabulary-parallel
+   loss (``DRYRUN_PEAK_BEFORE``), and the phase fails unless it fits the
+   card's own memory (``total_memory``).
+16. the cold start (``[coldstart]``), in processes of their own on one
+   cache directory under ``build/coldstart-smoke`` (``COLD_DIR``),
+   emptied first.  (a) ``python -m repro_torch.launch.serve`` with
+   ``COLD_CLI`` (SD v1.4, w8a8, 2 requests at 2 steps) and
+   ``--cache-dir``, twice, each in a fresh process: the cold start runs
+   ``nvcc`` for GroupNorm+swish and W8A8 and persists both libraries,
+   the warm one runs no ``nvcc``, adds no library and warms up faster;
+   both warmups and both first ticks printed.  (b) in a third process
+   (``coldstart_main``) on the warm directory, a fresh engine's
+   ``aot_warmup(('fp32', 'w8a8'))`` returns the reference's count (4
+   guided and unguided variants, 3 helpers, the decode) with no
+   ``nvcc`` and both libraries loaded; four requests served after it
+   build and load nothing, leave ``compile_stats`` as it was and launch
+   both kernels (the counters set to 0 first).  (c) the CLI again in
+   that process with ``--cache-max-mb`` below either library's size:
+   both are evicted, neither is built again, and it serves on.  Within
+   ``COLD_PHASE_S``.
 
 Every phase prints its seconds (``[time]``).
 
@@ -250,11 +270,12 @@ largest over the batch-4 and the batch-``MESH_SPD`` shapes; for
 path shape), with ``passes`` (TF32 products per float32 product) and
 ``bound_f32_ms`` (the float32 CUDA-core bound) beside them.
 ``launches`` is each kernel's count over the runs of phases 5, 5b, 7, 8,
-12, 13, 9 and 10 (phase 12's sharded runs only: a tick over two shards
-launches each kernel's plan twice; phase 13's sampling runs (c) and its
-gradient step (d), the loss before and after the step), each read from
-counters set to 0 just before its run (phase 11's runs launch none,
-which it checks).
+12, 13, 9, 10 and 16 (phase 12's sharded runs only: a tick over two
+shards launches each kernel's plan twice; phase 13's sampling runs (c)
+and its gradient step (d), the loss before and after the step; phase
+16's requests served after ``aot_warmup``), each read from counters set
+to 0 just before its run (phase 11's runs launch none, which it
+checks).
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, and the run then exits non-zero with no result; so does a run
 without CUDA or without the repository beside this file.
@@ -448,8 +469,28 @@ DRYRUN_MODEL_RTOL = 0.05
 DRYRUN_PEAK_RTOL = 0.10
 DRYRUN_TERM_SLACK = 1.05
 DRYRUN_CELLS = ('train_4k', 'prefill_32k', 'decode_32k')
+# each (16, 16) cell's peak GiB a card before the vocabulary-parallel loss
+# and the head-sharded SSD scan (phase 15 (c) before those changes)
+DRYRUN_PEAK_BEFORE = {'train_4k': 77.24, 'prefill_32k': 3.28,
+                      'decode_32k': 4.10}
 DRYRUN_PHASE_S = 300
 DRYRUN_TIMEOUT_S = 900
+
+# phase 16, the cold start: the serving CLI on SD v1.4 at w8a8, a few
+# requests at a few steps, twice in fresh processes on one empty cache
+# directory (cold: nvcc builds GroupNorm+swish and W8A8; warm: loads
+# them); then a fresh engine's aot_warmup over the warm directory, and the
+# CLI again under a size bound below one library's size
+COLD_CLI = ('--diffusion', '--model', 'sd-v1.4', '--precision', 'w8a8',
+            '--requests', '2', '--rate', '50', '--slots', '2', '--steps',
+            '2', '--quality-probe', '0')
+COLD_KERNELS = ('fused_gn_swish', 'w8a8_matmul')
+COLD_PRECISIONS = ('fp32', 'w8a8')
+COLD_SLOTS, COLD_STEPS = 2, 2
+COLD_MAX_MB = 0.25
+COLD_DIR = ROOT / 'build' / 'coldstart-smoke'
+COLD_PHASE_S = 480
+COLD_TIMEOUT_S = 600
 # (BH, S, T, d, causal, q dtype, k/v dtype): the InternLM2-1.8B prefill
 # (4 x 16 heads, 1000 tokens, not a multiple of the 64-row tile) in the
 # path's float32, all-bf16, and float32 q over a bf16 cache; the
@@ -3146,9 +3187,11 @@ def phase_dryrun(card, single, prefill):
     fake process groups cannot share one with phase 14's), with phase 11
     (b)'s and phase 7's measured numbers; its lines are printed here and
     any failure fails the run."""
+    import torch
     arg = json.dumps({'card': card, 'train': {
         k: single[k] for k in ('steady', 'peak', 'flops', 'flops_counted')},
-        'prefill': prefill})
+        'prefill': prefill,
+        'memory': torch.cuda.get_device_properties(0).total_memory})
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
                           '--dryrun', arg], capture_output=True, text=True,
@@ -3274,6 +3317,13 @@ def dryrun_main(arg) -> int:
         r = DR.run_cell(LM_ARCH, cell, False, out_dir=str(out_dir))
         dryrun_row(torch, r, card, f'(c) {LM_ARCH} {cell} on (16, 16), '
                    f'{r["devices"]} fake ranks')
+        peak = r['memory']['peak_bytes_per_device']
+        print(f'[dryrun] (c) {cell}: peak {peak / 2**30:.2f} GiB a card '
+              f'(before the vocabulary-parallel loss: '
+              f'{DRYRUN_PEAK_BEFORE[cell]:.2f} GiB) against the card\'s '
+              f'{arg["memory"] / 2**30:.2f} GiB')
+        check(peak < arg['memory'], f'dry run (c): {cell} needs '
+              f'{peak / 2**30:.2f} GiB a card, over the card\'s memory')
     for line in RF.report(str(out_dir)).splitlines():
         print(f'[dryrun] (c) {line}')
     t_c = time.perf_counter() - t0
@@ -3285,6 +3335,185 @@ def dryrun_main(arg) -> int:
     check(t_all <= DRYRUN_PHASE_S, f'dry run: {t_all:.1f} s, over '
           f'{DRYRUN_PHASE_S} s')
     check(sum(launches.values()) == 0, f'dry run launched kernels {launches}')
+    return 0
+
+
+def cold_env() -> dict:
+    """The environment of phase 16's processes: the checkout's ``src``
+    first on the path."""
+    env = dict(os.environ)
+    env['PYTHONPATH'] = str(ROOT / 'src') + (
+        os.pathsep + env['PYTHONPATH'] if env.get('PYTHONPATH') else '')
+    return env
+
+
+def cold_libraries(cache: Path) -> dict:
+    """{library file: bytes} in the cache directory."""
+    return {p.name: p.stat().st_size for p in sorted(cache.glob('*.so'))}
+
+
+def cold_cli(kind: str, cache: Path) -> dict:
+    """One run of the serving CLI in a fresh process on ``cache``: its
+    ``[coldstart]`` and final ``[serve]`` lines, its warmup, first tick,
+    nvcc runs and libraries loaded."""
+    import re
+    out = subprocess.run(
+        [sys.executable, '-m', 'repro_torch.launch.serve', *COLD_CLI,
+         '--cache-dir', str(cache)], capture_output=True, text=True,
+        timeout=COLD_TIMEOUT_S, cwd=ROOT, env=cold_env())
+    for line in out.stdout.splitlines():
+        if line.startswith('[coldstart]') or ' done in ' in line:
+            print(f'[coldstart] (a) {kind}: {line}')
+    if out.returncode:
+        print(out.stderr[-6000:], file=sys.stderr)
+    check(out.returncode == 0, f'phase 16 (a): the {kind} start exited '
+          f'{out.returncode}')
+    warm = re.search(r'\[coldstart\] warmup ([0-9.]+)s - (warm|cold)'
+                     r'(?: \(persisted (\d+) executables\))?', out.stdout)
+    first = re.search(r'\[coldstart\] first tick ([0-9.]+)s .*; (\d+) nvcc '
+                      r'runs, (\d+) kernel libraries', out.stdout)
+    check(warm is not None and first is not None
+          and f'[serve] {COLD_CLI[COLD_CLI.index("--requests") + 1]} done'
+          in out.stdout, f'phase 16 (a): the {kind} start printed no '
+          '[coldstart] lines or served nothing')
+    return {'warmup_s': float(warm.group(1)), 'state': warm.group(2),
+            'persisted': None if warm.group(3) is None
+            else int(warm.group(3)),
+            'first_tick_s': float(first.group(1)),
+            'nvcc': int(first.group(2)), 'loads': int(first.group(3)),
+            'libraries': cold_libraries(cache)}
+
+
+def phase_coldstart(card) -> collections.Counter:
+    """Phase 16: (a) a cold and a warm start of the serving CLI on one
+    empty cache directory, each in a fresh process; (b) and (c) in a
+    process of their own (``coldstart_main``).  Returns (b)'s launches,
+    which ran the main path's kernels."""
+    t0 = time.perf_counter()
+    shutil.rmtree(COLD_DIR, ignore_errors=True)
+    cache = COLD_DIR / 'kernels'
+    cold = cold_cli('cold', cache)
+    warm = cold_cli('warm', cache)
+    print(f'[coldstart] (a) warmup cold {cold["warmup_s"]:.2f} s, warm '
+          f'{warm["warmup_s"]:.2f} s; first tick cold '
+          f'{cold["first_tick_s"]:.2f} s, warm {warm["first_tick_s"]:.2f} '
+          f's (from the engine\'s construction); nvcc runs cold '
+          f'{cold["nvcc"]}, warm {warm["nvcc"]}; libraries '
+          f'{cold["libraries"]} ({card})')
+    check(cold['state'] == 'cold' and cold['nvcc'] == len(COLD_KERNELS)
+          and cold['persisted'] == len(COLD_KERNELS)
+          and len(cold['libraries']) == len(COLD_KERNELS),
+          f'phase 16 (a): the cold start {cold}')
+    check(sorted(n.split('-')[0] for n in cold['libraries'])
+          == sorted(COLD_KERNELS), f'phase 16 (a): {cold["libraries"]}')
+    check(warm['state'] == 'warm' and warm['nvcc'] == 0
+          and warm['loads'] == len(COLD_KERNELS)
+          and warm['libraries'] == cold['libraries'],
+          f'phase 16 (a): the warm start {warm}')
+    check(warm['warmup_s'] < cold['warmup_s'], 'phase 16 (a): the warm '
+          'start warmed up no faster than the cold one')
+    out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          '--coldstart', json.dumps({'cache': str(cache)})],
+                         capture_output=True, text=True,
+                         timeout=COLD_TIMEOUT_S, cwd=ROOT, env=cold_env())
+    launches = None
+    for line in out.stdout.splitlines():
+        if line.startswith('{"launches"'):
+            launches = json.loads(line)['launches']
+        elif line.startswith('[coldstart]') or line.startswith('[serve]'):
+            print(line)
+    if out.returncode:
+        print(out.stderr[-6000:], file=sys.stderr)
+    check(out.returncode == 0 and launches is not None,
+          f'phase 16 (b, c) exited {out.returncode}')
+    dt = time.perf_counter() - t0
+    print(f'[coldstart] the phase {dt:.1f} s')
+    check(dt <= COLD_PHASE_S, f'phase 16: {dt:.1f} s, over {COLD_PHASE_S} s')
+    return collections.Counter(launches)
+
+
+def coldstart_main(arg) -> int:
+    """Phase 16 (b) and (c), in a fresh process on (a)'s warm cache."""
+    import numpy
+    import torch
+    sys.path.insert(0, str(ROOT / 'src'))
+    from repro_torch.configs.diffusion import SD_V1_4, VAE_512
+    from repro_torch.diffusion.pipeline import DiffusionPipeline
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import serve as tserve
+    from repro_torch.serving import (ContinuousBatchingEngine,
+                                     GenerationRequest, cache_entries,
+                                     enable_persistent_cache)
+    cache = arg['cache']
+    enable_persistent_cache(cache)
+    pipe = DiffusionPipeline.init(0, SD_V1_4, VAE_512, device='cuda')
+    gen = torch.Generator().manual_seed(1)
+    context = torch.randn((1, 77, SD_V1_4.context_dim), generator=gen
+                          ).repeat(COLD_SLOTS, 1, 1)
+    engine = ContinuousBatchingEngine(pipe, slots=COLD_SLOTS,
+                                      context=context, quality_probe=0)
+
+    # (b) the ahead-of-time warmup, then served ticks
+    t0 = time.perf_counter()
+    info = engine.aot_warmup(COLD_PRECISIONS)
+    dt = time.perf_counter() - t0
+    want = len(engine.step_variants(COLD_PRECISIONS)) + 3 + 1
+    after_aot = dict(build.counts)
+    stats = engine.compile_stats()
+    print(f'[coldstart] (b) aot_warmup{COLD_PRECISIONS}: {info["variants"]} '
+          f'variants (the reference counts {want}: '
+          f'{len(engine.step_variants(COLD_PRECISIONS))} step variants, 3 '
+          f'helpers, the decode) in {dt:.2f} s; nvcc runs '
+          f'{after_aot["nvcc"]}, libraries loaded {after_aot["loads"]}; '
+          f'compile_stats {stats}')
+    check(info['variants'] == want == 8, f'aot_warmup counted {info}')
+    check(after_aot == {'nvcc': 0, 'loads': len(COLD_KERNELS)},
+          f'aot_warmup over the warm cache: {after_aot}')
+    check(set(stats.values()) == {1}, f'compile_stats {stats}')
+    ops.reset_launches()
+    reqs = [GenerationRequest(request_id=i, seed=100 + i, steps=COLD_STEPS,
+                              guidance=g, precision=p)
+            for i, (p, g) in enumerate([('w8a8', 0.0), ('w8a8', 7.5),
+                                        ('fp32', 7.5), ('fp32', 0.0)])]
+    for r in reqs:
+        engine.submit(r, now=0.0)
+    t0 = time.perf_counter()
+    results = engine.run_until_idle(now=0.0)
+    torch.cuda.synchronize()
+    served_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    print(f'[coldstart] (b) {len(results)} requests served after it in '
+          f'{served_s:.2f} s: launches {launches}; nvcc runs '
+          f'{build.counts["nvcc"]}, libraries loaded '
+          f'{build.counts["loads"]}; compile_stats {engine.compile_stats()}')
+    check(len(results) == len(reqs) and all(
+        numpy.isfinite(r.image).all() for r in results),
+          'phase 16 (b): a request was lost or its image is not finite')
+    check(dict(build.counts) == after_aot, 'phase 16 (b): a served tick '
+          f'built or loaded a library: {build.counts}')
+    check(engine.compile_stats() == stats, 'phase 16 (b): serving moved '
+          f'compile_stats: {engine.compile_stats()} against {stats}')
+    check(all(launches[k] > 0 for k in COLD_KERNELS),
+          f'phase 16 (b): a kernel never launched: {launches}')
+    del engine, pipe, results
+    torch.cuda.empty_cache()
+
+    # (c) the CLI under a bound below one library's size
+    sizes = cold_libraries(Path(cache))
+    check(COLD_MAX_MB * 2**20 < min(sizes.values()),
+          f'phase 16 (c): a library is under the bound: {sizes}')
+    tserve.setup_logging('info')
+    tserve.main(list(COLD_CLI) + ['--cache-dir', cache, '--cache-max-mb',
+                                  str(COLD_MAX_MB)])
+    entries, evicted = cache_entries(cache, with_evictions=True)
+    print(f'[coldstart] (c) --cache-max-mb {COLD_MAX_MB} against libraries '
+          f'of {sizes}: {evicted} evicted, {entries} left; nvcc runs '
+          f'{build.counts["nvcc"]}; the process served on')
+    check(evicted >= len(COLD_KERNELS) and entries == 0,
+          f'phase 16 (c): {evicted} evicted, {entries} left')
+    check(build.counts['nvcc'] == 0, 'phase 16 (c): an evicted library '
+          'was built again while loaded')
+    print(json.dumps({'launches': launches}))
     return 0
 
 
@@ -3459,6 +3688,13 @@ def main() -> int:
     phase_dryrun(card, single, SERVE_LM_FP32[LM_ARCH])
     lap('15 (dry run)')
 
+    # phase 16: the cold start, in processes of their own
+    cold_launches = phase_coldstart(card)
+    print(f'[coldstart] served ticks after aot_warmup launched: '
+          f'{dict(cold_launches)}')
+    launches.update(cold_launches)
+    lap('16 (cold start)')
+
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():
         s = summary[name]
@@ -3480,4 +3716,6 @@ def main() -> int:
 if __name__ == '__main__':
     if sys.argv[1:2] == ['--dryrun']:
         sys.exit(dryrun_main(json.loads(sys.argv[2])))
+    if sys.argv[1:2] == ['--coldstart']:
+        sys.exit(coldstart_main(json.loads(sys.argv[2])))
     sys.exit(main())

@@ -299,3 +299,26 @@ extern "C" int fused_gn_swish_max_clusters(int cg, int cluster, int smem) {
   return vec == 4 ? max_clusters<true, 4>(cluster, smem)
        : vec == 2 ? max_clusters<true, 2>(cluster, smem) : max_clusters<true, 1>(cluster, smem);
 }
+
+// Raise the shared-memory limit of every resident variant on the current
+// device to the most a block may opt in to, less its static shared memory,
+// so no launch there needs to (the streaming variants use none); launches
+// nothing.  Returns a CUDA error code.
+template <int VEC>
+cudaError_t allow_most(int most) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, fused_gn_swish_kernel<true, VEC>);
+  if (e != cudaSuccess) return e;
+  return allow_smem<true, VEC>((size_t)most - a.sharedSizeBytes);
+}
+
+extern "C" int fused_gn_swish_prepare() {
+  int dev = 0, most = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess) e = allow_most<4>(most);
+  if (e == cudaSuccess) e = allow_most<2>(most);
+  if (e == cudaSuccess) e = allow_most<1>(most);
+  return (int)e;
+}

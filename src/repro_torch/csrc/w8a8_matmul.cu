@@ -305,19 +305,28 @@ bool encode(CUtensorMap* map, const int8_t* ptr, int rows, int kp, int box_rows)
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// Raise the kernel's dynamic shared-memory limit on the current device,
+// once per device.
+template <int BN, bool SWAP>
+cudaError_t configure() {
+  static bool configured[kMaxDevices] = {};
+  const int dev = device_slot();
+  if (dev < 0) return cudaErrorInvalidDevice;
+  if (configured[dev]) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(w8a8_wgmma_kernel<BN, SWAP>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       smem_bytes<BN>());
+  if (e == cudaSuccess) configured[dev] = true;
+  return e;
+}
+
 template <int BN, bool SWAP>
 int launch(const int8_t* xq, const float* xs, const int8_t* wt, const float* ws,
            float* out, int* scratch, int M, int N, int kp, int split,
            cudaStream_t stream) {
-  static bool configured[kMaxDevices] = {};
-  const int dev = device_slot();
-  if (dev < 0) return (int)cudaErrorInvalidDevice;
-  if (!configured[dev]) {
-    cudaError_t e = cudaFuncSetAttribute(w8a8_wgmma_kernel<BN, SWAP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         smem_bytes<BN>());
+  {
+    cudaError_t e = configure<BN, SWAP>();
     if (e != cudaSuccess) return (int)e;
-    configured[dev] = true;
   }
   const int rows_p = SWAP ? N : M, rows_q = SWAP ? M : N;
   const int kboxes = (kp + BK - 1) / BK;
@@ -367,4 +376,16 @@ extern "C" int w8a8_matmul_s8(const int8_t* xq, const float* xs, const int8_t* w
     }
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// Raise every tile width's shared-memory limit on the current device, as
+// its first launch there would; launches nothing.  Returns a CUDA error
+// code.
+extern "C" int w8a8_matmul_prepare() {
+  cudaError_t e = configure<128, false>();
+  if (e == cudaSuccess) e = configure<8, true>();
+  if (e == cudaSuccess) e = configure<16, true>();
+  if (e == cudaSuccess) e = configure<32, true>();
+  if (e == cudaSuccess) e = configure<64, true>();
+  return (int)e;
 }

@@ -280,11 +280,16 @@ def resolve_hint(shape, spec, mesh) -> Spec:
     """``shard_hint``'s spec for a tensor of ``shape``: the sentinel
     ``'dp'`` becomes ``dp_spec`` of its dim, and axes absent from the
     mesh or not dividing their dim are dropped; missing trailing dims
-    are replicated."""
+    are replicated.  A dim of one element is replicated: only axes of
+    one rank divide it, which split nothing, and DTensor refuses to
+    flatten a sharded dim of one element into its neighbour (a batch of
+    one row on a 'data' axis of one rank, before a product)."""
     sizes = axis_sizes(mesh)
     out: List[Any] = []
     for dim, ax in zip(shape, spec):
-        if ax == 'dp':
+        if dim == 1:
+            out.append(None)
+        elif ax == 'dp':
             out.append(dp_spec(mesh, dim))
         elif isinstance(ax, str) and ax in sizes and dim % sizes[ax] == 0:
             out.append(ax)
@@ -392,9 +397,10 @@ class _ContiguousGrad(torch.autograd.Function):
         return g.contiguous()
 
 
-def on_shards(fn, n_out: int, *args):
+def on_shards(fn, n_out: int, *args, out_placements=None):
     """``fn`` on each rank's local shards of the DTensor ``args``
-    (``local_map``), its ``n_out`` outputs laid out as ``args[0]``: a
+    (``local_map``), its ``n_out`` outputs laid out as ``args[0]`` (or by
+    ``out_placements``: one list of placements, or one per output): a
     function that needs no communication under that layout (rows of a
     batch, heads), and that DTensor's own rules cannot follow (sorts,
     scatters, reshapes inside einsums; torch 2.11 refuses some of them,
@@ -421,7 +427,8 @@ def on_shards(fn, n_out: int, *args):
         [Partial() if a.is_replicate() and o.is_shard() else a
          for a, o in zip(x.placements, pl)] if is_dtensor(x) else None
         for x in args)
-    out = (pl,) * n_out if n_out > 1 else pl
+    out = out_placements if out_placements is not None else (
+        (pl,) * n_out if n_out > 1 else pl)
     return local_map(local, out_placements=out, in_grad_placements=grads,
                      device_mesh=args[0].device_mesh)(*args)
 
@@ -463,6 +470,111 @@ def lookup(table, ids):
         mesh = table.device_mesh
         ids = DTensor.from_local(ids, mesh, [Replicate()] * mesh.ndim)
     return _Lookup.apply(table, ids)
+
+
+def _all_reduce(t: torch.Tensor, op: str, mesh, dims) -> torch.Tensor:
+    """``t`` all-reduced with ``op`` over each mesh dim in ``dims``, as
+    functional collectives (the dry run's fake group counts them)."""
+    import torch.distributed._functional_collectives as funcol
+    for d in dims:
+        t = funcol.all_reduce(t, op, (mesh, d))
+        if hasattr(t, 'wait'):              # an AsyncCollectiveTensor
+            t = t.wait()
+    return t
+
+
+def mask_padded(x: torch.Tensor, real_vocab: Optional[int],
+                first: int = 0) -> torch.Tensor:
+    """Logits ``x`` (..., n) over the vocabulary's columns ``first`` to
+    ``first + n - 1``, the padded ones (``real_vocab`` and up) set to
+    -1e30; ``x`` itself when none is padded."""
+    n = x.shape[-1]
+    if real_vocab is None or first + n <= real_vocab:
+        return x
+    cols = torch.arange(first, first + n, device=x.device)
+    return torch.where(cols < real_vocab, x, -1e30)
+
+
+def token_nll(x: torch.Tensor, labels: torch.Tensor,
+              real_vocab: Optional[int] = None) -> torch.Tensor:
+    """Per-token ``logsumexp(x) - x[max(label, 0)]`` of plain logits
+    (..., vocab), the padded vocabulary masked: the term ``vocab_xent``
+    splits over the vocabulary."""
+    x = mask_padded(x, real_vocab)
+    gold = x.gather(-1, labels.clamp_min(0)[..., None].long())[..., 0]
+    return torch.logsumexp(x, dim=-1) - gold
+
+
+def _vocab_dims(logits) -> List[int]:
+    """The mesh dims of more than one rank that split dim 2 of ``logits``."""
+    return [i for i, pl in enumerate(logits.placements)
+            if pl.is_shard(2) and logits.device_mesh.size(i) > 1]
+
+
+class _VocabXent(torch.autograd.Function):
+    """Per-token ``logsumexp(x) - x[label]`` of logits whose vocabulary
+    is sharded; see ``vocab_xent``."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, real_vocab):
+        from torch.distributed.tensor import DTensor
+        mesh, vdims = logits.device_mesh, _vocab_dims(logits)
+        lo, n = row_shard(logits, 2)
+        x = mask_padded(logits.to_local(), real_vocab, lo)
+        m = _all_reduce(x.amax(-1), 'max', mesh, vdims)
+        s = _all_reduce(torch.exp(x - m[..., None]).sum(-1), 'sum', mesh,
+                        vdims)
+        logz = m + torch.log(s)
+        idx = labels.to_local().clamp_min(0).long() - lo
+        own = (idx >= 0) & (idx < n)
+        idx = idx.clamp(0, n - 1)
+        gold = torch.where(own, x.gather(-1, idx[..., None])[..., 0], 0.0)
+        gold = _all_reduce(gold, 'sum', mesh, vdims)
+        ctx.save_for_backward(x, logz, idx, own)
+        ctx.meta = (mesh, logits.placements, labels.placements,
+                    logits.shape, logits.stride())
+        return DTensor.from_local(logz - gold, mesh, labels.placements,
+                                  shape=labels.shape,
+                                  stride=labels.stride())
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import DTensor
+        x, logz, idx, own = ctx.saved_tensors
+        mesh, pls, label_pls, shape, stride = ctx.meta
+        g = grad.redistribute(mesh, label_pls).to_local()
+        dx = torch.exp(x - logz[..., None]).mul_(g[..., None])
+        dx.scatter_add_(-1, idx[..., None],
+                        torch.where(own, -g, 0.0)[..., None])
+        return DTensor.from_local(dx, mesh, pls, shape=shape,
+                                  stride=stride), None, None
+
+
+def vocab_xent(logits, labels, real_vocab: Optional[int] = None):
+    """The per-token cross-entropy ``logsumexp(x) - x[max(label, 0)]``,
+    (B, S), of float32 logits (B, S, vocab) that are a DTensor, the
+    padded vocabulary (``real_vocab`` and up) set to -1e30: a
+    vocabulary-parallel cross-entropy.  The logits are held at ('dp',
+    None, 'model') (``_readout``'s layout) and the labels at their rows;
+    each rank takes its shard's row max, ``sum(exp(x - max))`` and the
+    gold logit where its columns hold the label, each all-reduced over
+    the mesh dims that split the vocabulary, and its backward,
+    ``g * (softmax - onehot)``, is local.  No rank holds a row over the
+    whole vocabulary.  Where no mesh dim splits the vocabulary, each
+    rank's rows go through ``token_nll`` as on one device, with the same
+    bits."""
+    from torch.distributed.tensor import DTensor, Replicate
+    logits = shard_hint(logits, 'dp', None, 'model')
+    mesh = logits.device_mesh
+    if not is_dtensor(labels):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim)
+    labels = labels.redistribute(mesh, [
+        Replicate() if pl.is_shard(2) else pl for pl in logits.placements])
+    if not _vocab_dims(logits):
+        return on_shards(lambda x, lab: token_nll(x, lab, real_vocab), 1,
+                         logits, labels,
+                         out_placements=list(labels.placements))
+    return _VocabXent.apply(logits, labels, real_vocab)
 
 
 def is_dtensor(x) -> bool:

@@ -99,6 +99,21 @@ def gn_plan(HW: int, cg: int) -> GNPlan:
     return GNPlan(cluster, chunk, resident, smem if resident else 0)
 
 
+def prepare(device) -> None:
+    """Load the kernel's library (built first if needed) and raise the
+    kernel's shared-memory limit on the CUDA ``device``, as its first
+    launch there would; launches nothing."""
+    from repro_torch.kernels.build import load
+    fn = load('fused_gn_swish').fused_gn_swish_prepare
+    fn.argtypes = []
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        err = fn()
+    if err:
+        raise RuntimeError(f'fused_gn_swish_prepare failed on {device}: CUDA '
+                           f'error {err}')
+
+
 def _kernel_fn():
     global _fn
     if _fn is None:

@@ -42,6 +42,31 @@ def reset_launches() -> None:
         mod.launches = 0
 
 
+#: the kernels a diffusion engine can reach, which ``prepare`` readies
+PREPARED = ('fused_gn_swish', 'w8a8_matmul')
+
+
+def prepare(names, devices) -> None:
+    """Build the named kernels' libraries that this process has not
+    loaded and that are missing (all at once, one ``nvcc`` each), load
+    them and set each kernel's shared-memory attribute on every CUDA
+    device of ``devices``, launching nothing: what their first launches
+    there would do.  A loaded library stays in use even if its file has
+    since been evicted.  The CPU runs the plain versions, so a CPU
+    device needs nothing.  ``names`` are among ``PREPARED``."""
+    cuda = sorted({torch.device(d) for d in devices
+                   if torch.device(d).type == 'cuda'}, key=str)
+    if not cuda or not names:
+        return
+    from repro_torch.kernels import build
+    missing = [n for n in names if n not in build._loaded]
+    if missing:
+        build.build(missing)
+    for name in names:
+        for dev in cuda:
+            _KERNEL_MODULES[name].prepare(dev)
+
+
 def _on_cuda(t: torch.Tensor, op: str) -> bool:
     if t.device.type == 'cuda':
         if _without_memory(t):

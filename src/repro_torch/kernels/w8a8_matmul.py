@@ -136,6 +136,21 @@ def w8a8_plan(M: int, N: int, K: int) -> W8A8Plan:
 # launch
 # ---------------------------------------------------------------------------
 
+def prepare(device) -> None:
+    """Load the kernel's library (built first if needed) and raise the
+    kernel's shared-memory limit on the CUDA ``device``, as its first
+    launch there would; launches nothing."""
+    from repro_torch.kernels.build import load
+    fn = load('w8a8_matmul').w8a8_matmul_prepare
+    fn.argtypes = []
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        err = fn()
+    if err:
+        raise RuntimeError(f'w8a8_matmul_prepare failed on {device}: CUDA '
+                           f'error {err}')
+
+
 def _kernel_fn():
     global _fn
     if _fn is None:

@@ -294,10 +294,16 @@ class OpCounter:
     see the module docstring.  ``shadow`` > 0 while DTensor's sharding
     propagation runs an op on global shapes (not counted)."""
 
-    def __init__(self):
+    def __init__(self, record: bool = False):
         from torch.utils.flop_counter import flop_registry
         from torch.utils.weak import WeakIdKeyDictionary
         self.registry = flop_registry
+        # with ``record``: every storage made, (op, shape, dtype, bytes),
+        # and those live at the peak
+        self.record = record
+        self.made: List[Tuple[str, Tuple[int, ...], str, int]] = []
+        self.at_peak: List[Tuple[str, Tuple[int, ...], str, int]] = []
+        self._what = WeakIdKeyDictionary()
         self.flops = 0
         self.bytes = 0
         self.collectives: List[Tuple[str, int, bool]] = []
@@ -310,7 +316,7 @@ class OpCounter:
     def _free(self, n: int) -> None:
         self.live -= n
 
-    def track(self, t: torch.Tensor) -> None:
+    def track(self, t: torch.Tensor, op: str = 'argument') -> None:
         st = t.untyped_storage()
         if st in self._storages:
             return
@@ -318,7 +324,14 @@ class OpCounter:
         self._storages[st] = n
         weakref.finalize(st, self._free, n)
         self.live += n
-        self.peak = max(self.peak, self.live)
+        if self.record:
+            self._what[st] = (op, tuple(t.shape),
+                              str(t.dtype).replace('torch.', ''), n)
+            self.made.append(self._what[st])
+        if self.live > self.peak:
+            self.peak = self.live
+            if self.record:
+                self.at_peak = list(self._what.values())
 
     def _within_host(self, group_name: str) -> bool:
         if group_name not in self._groups:
@@ -375,7 +388,7 @@ def _counting_mode(counter: OpCounter):
                 counter.bytes += sum(_nbytes(t) for t in
                                      _tensors((args, kwargs)) + outs)
             for t in outs:
-                counter.track(t)
+                counter.track(t, func.__name__)
             return out
 
     return Mode()
@@ -444,11 +457,11 @@ class _FallbackLog(logging.Handler):
 
 
 @contextlib.contextmanager
-def count_ops():
+def count_ops(record: bool = False):
     """Count what the block's local ops do (an ``OpCounter``, with the
     CPU mesh's ``fallbacks`` beside it): DTensor's shadow ops are left
     out and its resharding all-to-alls are real ones."""
-    counter, log = OpCounter(), _FallbackLog()
+    counter, log = OpCounter(record), _FallbackLog()
     loggers = [logging.getLogger(n) for n in (
         'torch.distributed.tensor._collective_utils',
         'torch.distributed.tensor._redistribute')]
@@ -512,12 +525,14 @@ def _locals(*trees):
 
 
 def trace_cell(cfg: ArchConfig, shape: ShapeConfig, mesh,
-               **kw) -> Dict[str, Any]:
+               record: bool = False, **kw) -> Dict[str, Any]:
     """Run the cell's step once on fake tensors laid out on ``mesh`` (a
     fake ``DeviceMesh``) and count, for rank 0: ``flops``,
     ``bytes_accessed``, ``collectives`` (``parse_collectives``),
     ``argument_bytes``, ``output_bytes``, ``peak_bytes_per_device`` and
-    the CPU mesh's ``fallbacks``."""
+    the CPU mesh's ``fallbacks``.  ``record`` adds the storages the step
+    made (``storages_made``) and those live at the peak
+    (``storages_at_peak``), each as (op, shape, dtype, bytes)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.tensor.experimental import implicit_replication
     fn, args, specs, _ = input_specs(cfg, shape, mesh, **kw)
@@ -542,19 +557,23 @@ def trace_cell(cfg: ArchConfig, shape: ShapeConfig, mesh,
                 with SH.use_mesh(mesh), implicit_replication():
                     return fn(*placed)
             arg_locals = _locals(model, state, rest[0])
-        with count_ops() as counter:
+        with count_ops(record) as counter:
             for t in arg_locals:
                 counter.track(t)
             out = call()
         out_bytes = sum({id(st): st.nbytes() for st in (
             t.untyped_storage() for t in _locals(*out))}.values())
-    return {'flops': float(counter.flops),
-            'bytes_accessed': float(counter.bytes),
-            'collectives': parse_collectives(counter.collectives),
-            'argument_bytes': argument_bytes(args, specs, mesh),
-            'output_bytes': int(out_bytes),
-            'peak_bytes_per_device': int(counter.peak),
-            'fallbacks': dict(counter.fallbacks)}
+    out = {'flops': float(counter.flops),
+           'bytes_accessed': float(counter.bytes),
+           'collectives': parse_collectives(counter.collectives),
+           'argument_bytes': argument_bytes(args, specs, mesh),
+           'output_bytes': int(out_bytes),
+           'peak_bytes_per_device': int(counter.peak),
+           'fallbacks': dict(counter.fallbacks)}
+    if record:
+        out['storages_made'] = counter.made
+        out['storages_at_peak'] = counter.at_peak
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -46,9 +46,13 @@ devices mid-replay after ``--resize-after K`` completions (default half
 the requests), keeping the results the resize flushes, and logs the
 ``[elastic]`` lines; parked requests re-enter and complete.
 
-The reference's compile-cache flags (``--cache-dir``,
-``--cache-max-mb``: JAX's cache, which ROADMAP lists under "Also not
-ported") are refused.
+Cold start: ``--cache-dir PATH`` keeps the kernel libraries that
+``nvcc`` builds in a persistent directory (``serving/compile_cache.py``),
+so a restarted server loads them instead of building them; the
+``[coldstart]`` line gives the warmup's seconds and whether the cache
+was warm (``warm (loaded from cache)``) or cold (``cold (persisted N
+executables)``, N the libraries in the directory).  ``--cache-max-mb``
+bounds the directory, evicting the least recently used libraries.
 """
 from __future__ import annotations
 
@@ -71,7 +75,8 @@ from repro_torch.models.unet import UNetConfig
 from repro_torch.obs import (SnapshotReporter, Tracer, render_exposition,
                              write_chrome_trace, write_jsonl)
 from repro_torch.serving import (AdmissionQueue, ContinuousBatchingEngine,
-                                 GenerationRequest, overload_factor)
+                                 GenerationRequest, cache_entries,
+                                 enable_persistent_cache, overload_factor)
 
 log_serve = logging.getLogger('serve')
 log_coldstart = logging.getLogger('coldstart')
@@ -82,16 +87,6 @@ log_frontier = logging.getLogger('frontier')
 log_obs = logging.getLogger('obs')
 log_mesh = logging.getLogger('mesh')
 log_elastic = logging.getLogger('elastic')
-
-#: the reference's flags that the port does not serve, and why
-_REFUSED = {
-    '--cache-dir': "JAX's compile cache is not ported (ROADMAP \"Also not "
-                   "ported\": serving/compile_cache.py); kernels/build.py "
-                   "caches the kernels",
-    '--cache-max-mb': "JAX's compile cache is not ported (ROADMAP \"Also "
-                      "not ported\": serving/compile_cache.py)",
-}
-
 
 def setup_logging(level: str = 'info', stream=None) -> None:
     """Leveled stdout logging with the ``[tag]`` prefixes: each part logs
@@ -198,8 +193,8 @@ def serve_diffusion(img: Optional[int], steps: int, n_requests: int,
                     slots_per_device=None, overlap_decode=None,
                     resize_to=None, resize_after=None,
                     trace_path=None, log_json_path=None, prom_path=None,
-                    report_every=None, model: str = 'toy', device='cuda',
-                    pipe=None):
+                    report_every=None, cache_dir=None, cache_max_mb=None,
+                    model: str = 'toy', device='cuda', pipe=None):
     """Replay a Poisson arrival trace through the continuous-batching
     engine and log the serving and energy report and the per-policy
     accuracy-vs-EPB frontier, as the reference's ``serve_diffusion``
@@ -220,6 +215,9 @@ def serve_diffusion(img: Optional[int], steps: int, n_requests: int,
     trace the replay and write the Chrome trace / JSONL log, reconciled
     with the metrics first; ``prom_path`` writes the final Prometheus
     exposition; ``report_every`` logs a snapshot every that many seconds.
+    ``cache_dir`` keeps the kernel libraries the warmup builds in a
+    persistent directory (a restarted process loads them) and
+    ``cache_max_mb`` bounds it.
 
     Returns the results and the metrics' ``summary()`` with the replay's
     wall seconds as ``makespan_s``."""
@@ -278,9 +276,22 @@ def serve_diffusion(img: Optional[int], steps: int, n_requests: int,
                       '(%d/device), overlap_decode=%s', devices,
                       ', '.join(str(d) for d in mesh.devices), engine.slots,
                       engine.slots // devices, engine.overlap_decode)
-    log_serve.info('warmup (kernels, policy=%s)...', precision)
-    warmup_s = engine.warmup(precisions=(precision,))
-    log_coldstart.info('warmup %.2fs (no persistent cache)', warmup_s)
+    if cache_dir and cache_max_mb is not None:
+        # enabled with its bound before warmup re-enables it (the bound is
+        # process state the engine's trim_cache calls enforce)
+        enable_persistent_cache(cache_dir,
+                                max_bytes=int(cache_max_mb * 2 ** 20))
+    entries_before = cache_entries(cache_dir) if cache_dir else 0
+    log_serve.info('warmup (kernels, policy=%s%s)...', precision,
+                   f', cache_dir={cache_dir}' if cache_dir else '')
+    warmup_s = engine.warmup(precisions=(precision,), cache_dir=cache_dir)
+    if cache_dir:
+        entries = cache_entries(cache_dir)
+        state = 'warm (loaded from cache)' if entries_before > 0 \
+            else f'cold (persisted {entries} executables)'
+        log_coldstart.info('warmup %.2fs - %s', warmup_s, state)
+    else:
+        log_coldstart.info('warmup %.2fs (no persistent cache)', warmup_s)
     if overload > 0:
         tick_s = engine.measure_tick_s(steps=steps)
         capacity_rps = engine.slots / (steps * tick_s)
@@ -352,6 +363,12 @@ def serve_diffusion(img: Optional[int], steps: int, n_requests: int,
                                  'offered')
         if queue_depth is not None and s['max_queue_depth'] > queue_depth:
             raise AssertionError('queue bound broken')
+    if cache_dir:
+        from repro_torch.kernels import build
+        log_coldstart.info('first tick %.2fs after the engine was built; '
+                           '%d nvcc runs, %d kernel libraries loaded in '
+                           'this process', s['first_tick_s'],
+                           build.counts['nvcc'], build.counts['loads'])
     if cache_interval > 1 or s['steps_saved'] > 0:
         log_sched.info('cache_hit_rate=%.2f early_exits=%d steps_saved=%d',
                        s['cache_hit_rate'], int(s['early_exits']),
@@ -503,12 +520,14 @@ def main(argv=None) -> None:
                     metavar='SECONDS',
                     help='print an in-run metrics snapshot line every '
                          'this many seconds (diffusion mode)')
-    for flag, why in _REFUSED.items():
-        ap.add_argument(flag, default=None, help=f'refused: {why}')
+    ap.add_argument('--cache-dir', default=None,
+                    help='persistent kernel-library directory: a '
+                         'restarted server loads the kernels it built '
+                         'from here instead of running nvcc again')
+    ap.add_argument('--cache-max-mb', type=float, default=None,
+                    help='bound the persistent kernel-library directory; '
+                         'least-recently-used libraries are evicted')
     args = ap.parse_args(argv)
-    for flag, why in _REFUSED.items():
-        if getattr(args, flag[2:].replace('-', '_')) is not None:
-            ap.error(f'{flag} is not served by the port: {why}')
     setup_logging(args.log_level)
     if args.diffusion:
         precision = args.precision or ('w8a8' if args.w8a8 else 'fp32')
@@ -531,6 +550,8 @@ def main(argv=None) -> None:
                         log_json_path=args.log_json,
                         prom_path=args.prom,
                         report_every=args.report_every,
+                        cache_dir=args.cache_dir,
+                        cache_max_mb=args.cache_max_mb,
                         model=args.model, device=args.device)
         return
     cfg = smoke_config(args.arch) if args.preset == 'smoke' \

@@ -235,11 +235,12 @@ def _project_kv(p: Attention, cfg: ArchConfig, x_kv: torch.Tensor,
 
 
 def _positions(x: torch.Tensor, cache_pos: Optional[int]) -> torch.Tensor:
-    """(B, S) positions counting from ``cache_pos`` (0 without a cache)."""
-    B, S, _ = x.shape
+    """(1, S) positions counting from ``cache_pos`` (0 without a cache),
+    which broadcast over the batch: on a mesh the rotary tables then
+    hold no row of the global batch."""
+    S = x.shape[1]
     start = 0 if cache_pos is None else cache_pos
-    pos = torch.arange(start, start + S, device=x.device)[None, :]
-    return pos.expand(B, S)
+    return torch.arange(start, start + S, device=x.device)[None, :]
 
 
 def attention(p: Attention, cfg: ArchConfig, x: torch.Tensor, *,

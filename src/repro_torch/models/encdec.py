@@ -38,6 +38,7 @@ import torch
 import torch.nn as nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import layers as L
 from repro_torch.models.attention import (Attention, attention,
                                           init_attention_cache)
@@ -102,7 +103,13 @@ def init_encdec(generator: torch.Generator, cfg: ArchConfig,
 
 
 def _ffn(blk: EncBlock, x: torch.Tensor) -> torch.Tensor:
-    return x + L.mlp(blk.mlp, L.layernorm(blk.ffn_norm, x), act='gelu')
+    # the residual stream held at ('dp', None, None) on both sides, as
+    # the LM's blocks hold it: a product's output may land with its rows
+    # on 'model', which the next block's backward cannot follow, and a
+    # batch of one row must not stay split over a 'data' axis of one rank
+    x = SH.shard_hint(x, 'dp', None, None)
+    return SH.shard_hint(x + L.mlp(blk.mlp, L.layernorm(blk.ffn_norm, x),
+                                   act='gelu'), 'dp', None, None)
 
 
 def encode(p: EncDec, cfg: ArchConfig, frames: torch.Tensor,

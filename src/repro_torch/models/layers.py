@@ -187,22 +187,16 @@ def token_xent(logits: torch.Tensor, labels: torch.Tensor,
     """The LM losses' causal cross-entropy: logits (B, S, vocab) in
     float32, the padded vocabulary rows (``real_vocab`` and up) set to
     -1e30, the gold logit taken at ``max(labels, 0)``; the mean over the
-    labels that are not -1, its denominator at least 1."""
+    labels that are not -1, its denominator at least 1.  On a mesh the
+    per-token terms are vocabulary-parallel (``sharding.vocab_xent``)."""
     logits = logits.float()
-    vocab = logits.shape[-1]
-    if real_vocab is not None and real_vocab < vocab:
-        pad_mask = torch.arange(vocab, device=logits.device) < real_vocab
-        logits = torch.where(pad_mask, logits, -1e30)
-    logz = torch.logsumexp(logits, dim=-1)
-    # on a mesh the gold logit is read with the vocabulary replicated, on
-    # each rank's own rows: DTensor's gather along a sharded dim fails on
-    # a (B, S) result, and its gather on batch-sharded rows gathers the
-    # whole batch's logits
-    whole = SH.shard_hint(logits, 'dp')
-    gold = SH.on_shards(lambda w, lab: w.gather(
-        -1, lab.clamp_min(0)[..., None].long())[..., 0], 1, whole, labels)
+    if SH.is_dtensor(logits):
+        nll = SH.vocab_xent(logits, labels, real_vocab)
+        labels = SH.shard_hint(labels, 'dp')
+    else:
+        nll = SH.token_nll(logits, labels, real_vocab)
     mask = (labels >= 0).float()
-    return ((logz - gold) * mask).sum() / mask.sum().clamp_min(1.0)
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
 
 
 def _save_dots(ctx, op, *args, **kwargs):

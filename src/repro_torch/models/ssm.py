@@ -160,6 +160,47 @@ def _recurrence(xh, dt, A, Bm, Cm, state):
     return torch.einsum('bhn,bhpn->bhp', cqh, state)[:, None], state
 
 
+def _scan_on_heads(xh, dt, A, Bm, Cm, chunk: int, cache, S: int):
+    """The SSD scan (or, for a one-token step on a cache, the recurrence)
+    on a mesh whose 'model' axis divides the heads: each rank runs it on
+    its batch rows and its own heads, with the groups those heads read
+    (head h reads group ``h // (H // G)``), the reference's layout.
+    ``xh`` and ``dt`` hold their heads on 'model', ``A`` its heads, the
+    state (B, H, P, N) its heads on 'model' (dim 1, as ``cache_pspecs``
+    lays the cache); ``Bm`` and ``Cm`` (B, S, G, N) are replicated over
+    'model'.  Returns y (B, S, H, P), laid out as ``xh``, and the state."""
+    from torch.distributed.tensor import Shard
+    H, G = xh.shape[2], Bm.shape[2]
+    rep = H // G
+    xh = SH.shard_hint(xh, 'dp', None, 'model', None)
+    dt = SH.shard_hint(dt, 'dp', None, 'model')
+    A = SH.shard_hint(A, 'model')
+    Bm, Cm = SH.shard_hint(Bm, 'dp'), SH.shard_hint(Cm, 'dp')
+    h0, hl = SH.row_shard(xh, 2)
+    if hl % rep == 0 or rep % hl == 0:     # the rank's heads fill groups
+        groups = slice(h0 // rep, (h0 + hl - 1) // rep + 1)
+    else:                                  # one group row per head
+        groups = torch.arange(h0, h0 + hl, device=Bm.device) // rep
+    y_pl = list(xh.placements)
+    st_pl = [Shard(1) if pl.is_shard(2) else pl for pl in y_pl]
+    outs = (y_pl, st_pl)
+    if cache is None:
+        return SH.on_shards(
+            lambda x, d, a, b, c: _ssd_chunked(x, d, a, b[:, :, groups],
+                                               c[:, :, groups], chunk),
+            2, xh, dt, A, Bm, Cm, out_placements=outs)
+    st = cache['state']
+    st = st.redistribute(st.device_mesh, st_pl) if SH.is_dtensor(st) \
+        else SH.distribute(st, xh.device_mesh, st_pl)
+    if S == 1:
+        fn = lambda x, d, a, b, c, s: _recurrence(       # noqa: E731
+            x, d, a, b[:, :, groups], c[:, :, groups], s)
+    else:
+        fn = lambda x, d, a, b, c, s: _ssd_chunked(      # noqa: E731
+            x, d, a, b[:, :, groups], c[:, :, groups], chunk, s)
+    return SH.on_shards(fn, 2, xh, dt, A, Bm, Cm, st, out_placements=outs)
+
+
 def mamba(p: Mamba, cfg: ArchConfig, x: torch.Tensor, *,
           cache: Optional[Dict[str, torch.Tensor]] = None,
           quant: bool = False
@@ -181,13 +222,22 @@ def mamba(p: Mamba, cfg: ArchConfig, x: torch.Tensor, *,
                                  p.conv_b.to(xBC.dtype),
                                  None if cache is None else cache['conv'])
     xs, Bm, Cm = torch.split(xBC, [d_inner, G * N, G * N], dim=-1)
-    xh = SH.split_dim(xs, -1, (H, P)).float()
+    xh = SH.split_dim(xs, -1, (H, P))
+    # on a mesh whose 'model' axis divides the heads, each rank scans its
+    # own heads
+    on_heads = SH.is_dtensor(xh) and tp == 'model' and \
+        H % SH.axis_sizes(xh.device_mesh).get('model', 1) == 0
+    if on_heads:
+        xh = SH.shard_hint(xh, 'dp', None, 'model', None)
+    xh = xh.float()
     Bm = SH.split_dim(Bm, -1, (G, N)).float()
     Cm = SH.split_dim(Cm, -1, (G, N)).float()
     dt = F.softplus(dt.float() + p.dt_bias)               # (B, S, H)
     A = -torch.exp(p.A_log)
 
-    if cache is not None and S == 1:                      # the recurrence
+    if on_heads:
+        y, state = _scan_on_heads(xh, dt, A, Bm, Cm, s.chunk, cache, S)
+    elif cache is not None and S == 1:                    # the recurrence
         # on a mesh per rank on its batch rows, the heads whole
         # (``on_shards``), as the chunked scan below: DTensor's einsum
         # fails on the heads split out of the sharded channels

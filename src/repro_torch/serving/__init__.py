@@ -7,7 +7,8 @@ mesh with elastic resize, and per-bucket routing (port of
     pipe = DiffusionPipeline.init(0, SD_V1_4, VAE_512)        # on the GPU
     engine = ContinuousBatchingEngine(pipe, slots=4, context=ctx,
                                       cache_interval=3, exit_tol=0.01)
-    engine.warmup(precisions=('fp32', 'w8a8', 'w8a8+noise'))
+    engine.warmup(precisions=('fp32', 'w8a8', 'w8a8+noise'),
+                  cache_dir='/var/cache/repro-kernels')    # kernels kept
     engine.submit(GenerationRequest(request_id=0, seed=42, steps=50,
                                     precision='w8a8+noise'))
     while engine.busy:
@@ -25,6 +26,12 @@ from repro_torch.serving.batcher import (Bucket, BucketRouter, align_slots,
                                          group_by_precision, offered_load,
                                          overload_factor, plan_tick,
                                          split_cache_phase)
+from repro_torch.serving.compile_cache import (active_cache_dir,
+                                               cache_entries,
+                                               cache_evictions,
+                                               disable_persistent_cache,
+                                               enable_persistent_cache,
+                                               trim_cache)
 from repro_torch.serving.engine import ContinuousBatchingEngine
 from repro_torch.serving.metrics import (FrontierPoint, MetricsSnapshot,
                                          PhotonicAccountant, ServingMetrics)
@@ -36,4 +43,6 @@ __all__ = [
     'PrecisionPolicy', 'PhotonicAccountant', 'FrontierPoint',
     'Bucket', 'BucketRouter', 'bucket_for', 'align_slots', 'choose_slots', 'group_by_precision', 'offered_load',
     'overload_factor', 'plan_tick', 'split_cache_phase',
+    'enable_persistent_cache', 'disable_persistent_cache',
+    'active_cache_dir', 'cache_entries', 'cache_evictions', 'trim_cache',
 ]

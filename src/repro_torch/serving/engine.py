@@ -94,7 +94,13 @@ its rows are equal.  A ``StepMonitor`` (``engine.monitor``) gets each
 tick's wall time for every device, and ``on_straggler`` fires when its
 flagged set changes.
 
-The engine runs eagerly (no graph capture).
+The engine runs eagerly (no graph capture).  Its cold start is the
+kernels' builds: ``warmup`` and ``aot_warmup`` build (into the
+persistent cache, ``serving/compile_cache.py``, when one is enabled) and
+load the kernels the served precisions reach, ``aot_warmup`` without a
+tick, and ``compile_stats`` counts the argument signatures each step
+variant and helper has run with, the port's counterpart of the
+reference's jit cache sizes.
 """
 from __future__ import annotations
 
@@ -113,10 +119,14 @@ from repro_torch.diffusion.deepcache import unet_apply_cached
 from repro_torch.diffusion.pipeline import DiffusionPipeline, initial_noise
 from repro_torch.distributed.fault_tolerance import (StepMonitor,
                                                      elastic_serving_plan)
+from repro_torch.kernels import ops
 from repro_torch.launch.mesh import ServingMesh, serving_mesh
+from repro_torch.models.unet import AttnBlock
 from repro_torch.obs.tracer import NULL_TRACER, Tracer
 from repro_torch.serving.api import GenerationRequest, GenerationResult
 from repro_torch.serving.batcher import align_slots, plan_tick
+from repro_torch.serving.compile_cache import (enable_persistent_cache,
+                                               trim_cache)
 from repro_torch.serving.metrics import PhotonicAccountant, ServingMetrics
 from repro_torch.serving.queue import AdmissionQueue
 
@@ -292,6 +302,7 @@ class ContinuousBatchingEngine:
         self._replicas: Dict[torch.device, DiffusionPipeline] = {
             self.device: pipe}
         self._sides: Dict[torch.device, torch.cuda.Stream] = {}
+        self._reset_signatures()
         self._build_shards()
 
     @staticmethod
@@ -473,6 +484,118 @@ class ContinuousBatchingEngine:
             return 0.0
         return req.steps * self._tick_s
 
+    # -- signatures: the port's counterpart of the jit caches -------------
+    _HELPERS = ('_init_noise', '_place', '_take', '_decode')
+
+    def _reset_signatures(self) -> None:
+        """Forget every signature seen (construction, a resize: the
+        reference builds its jitted functions anew then)."""
+        self._sigs: Dict[str, set] = {}      # label -> signatures, in order
+
+    @staticmethod
+    def _sig(*tensors: torch.Tensor) -> tuple:
+        """The argument signature of a call: shapes, dtypes, devices."""
+        return tuple((tuple(t.shape), str(t.dtype), str(t.device))
+                     for t in tensors)
+
+    def _note(self, label: str, sig: tuple) -> None:
+        self._sigs.setdefault(label, set()).add(sig)
+
+    @staticmethod
+    def _step_label(pname: str, guided: bool,
+                    refresh: Optional[bool]) -> str:
+        """The reference's ``compile_stats`` label of a step variant
+        (``refresh`` None: the plain, uncached step)."""
+        suffix = '' if pname == 'fp32' else f'[{pname}]'
+        if refresh is None:
+            return ('_step_guided' if guided else '_step') + suffix
+        return (('_step_refresh' if refresh else '_step_skip')
+                + ('_guided' if guided else '') + suffix)
+
+    def _step_sig(self, sh: _Shard, caching: bool) -> tuple:
+        """A shard's step signature: its slot rows (and DeepCache rows)."""
+        return self._sig(sh.x, sh.cache_c) if caching else self._sig(sh.x)
+
+    def compile_stats(self) -> Dict[str, int]:
+        """The reference's labels (``_step`` / ``_step_guided`` for fp32,
+        ``_step[w8a8]``-style for a quantized policy, the DeepCache pair
+        as ``_step_refresh`` / ``_step_skip`` variants, then
+        ``_init_noise``, ``_place``, ``_take`` and, with a VAE,
+        ``_decode``), each with the number of distinct argument
+        signatures (shapes, dtypes, device) its counterpart here has run
+        with or ``aot_warmup`` prepared.  A new signature means new cuDNN
+        plans and kernel configurations, the port's recompilation: after
+        one warmup per served policy it is 1 per variant and stays so."""
+        out = {label: len(sigs) for label, sigs in self._sigs.items()
+               if label not in self._HELPERS}
+        for name in self._HELPERS:
+            if name != '_decode' or self.pipe.vae is not None:
+                out[name] = len(self._sigs.get(name, ()))
+        return out
+
+    def step_variants(self, precisions=('fp32',)):
+        """Every ``(precision, guided, refresh)`` step variant the given
+        request mix can reach on this engine: guided variants exist only
+        when the engine holds a ``context``; refresh/skip variants only
+        when DeepCache phasing is on (``refresh`` is None for the plain
+        uncached step)."""
+        guided_opts = (False, True) if self.context is not None else (False,)
+        out = []
+        for pname in precisions:
+            for guided in guided_opts:
+                if self.cache_interval > 1:
+                    out.append((pname, guided, True))
+                    out.append((pname, guided, False))
+                else:
+                    out.append((pname, guided, None))
+        return out
+
+    def _kernels_for(self, precisions) -> List[str]:
+        """The kernels the precisions reach: GroupNorm+swish in every
+        evaluation; W8A8 in a ``w8a8`` evaluation of a UNet with
+        attention (a ``w8a8+noise`` product is a float one)."""
+        names = ['fused_gn_swish']
+        if 'w8a8' in precisions and any(
+                isinstance(m, AttnBlock) for m in self.pipe.unet.modules()):
+            names.append('w8a8_matmul')
+        return names
+
+    def aot_warmup(self, precisions=('fp32',),
+                   cache_dir: Optional[str] = None) -> Dict[str, float]:
+        """Ahead-of-time warmup without a tick: build (where the cache
+        lacks them) and load the kernel libraries every variant of
+        ``step_variants(precisions)`` reaches, set each kernel's
+        shared-memory attribute on every device the shards use, and
+        prepare each variant's and helper's signature on every shard.
+        ``cache_dir`` enables the persistent cache first.  Returns
+        ``{'variants': n, 'seconds': wall}``, n the reference's count:
+        the variants, the three helpers and, with a VAE, the decode."""
+        if cache_dir is not None:
+            enable_persistent_cache(cache_dir)
+        t0 = time.perf_counter()
+        variants = self.step_variants(precisions)
+        ops.prepare(self._kernels_for(precisions),
+                    [sh.device for sh in self._shards])
+        for pname, guided, refresh in variants:
+            label = self._step_label(pname, guided, refresh)
+            for sh in self._shards:
+                self._note(label, self._step_sig(sh, refresh is not None))
+        for sh in self._shards:
+            one = sh.x[:1]
+            self._note('_init_noise', self._sig(one))
+            self._note('_place', self._sig(sh.x))
+            self._note('_take', self._sig(sh.x))
+            if sh.pipe.vae is not None:
+                self._note('_decode', self._sig(one))
+        n = len(variants) + 3 + (self.pipe.vae is not None)
+        trim_cache()    # the persistent cache's size bound, if any
+        dt = time.perf_counter() - t0
+        if self.tracer.enabled:
+            t1 = self.tracer.now()
+            self.tracer.complete('aot_warmup', t1 - dt, t1, cat='engine',
+                                 variants=n, seconds=dt)
+        return {'variants': n, 'seconds': dt}
+
     def _step_energy_j(self, precision: str, refresh: bool,
                        guided: bool) -> float:
         """Energy one slot consumes in one tick of this kind: the delta a
@@ -554,6 +677,7 @@ class ContinuousBatchingEngine:
         a full pass that rewrites them."""
         a, hx, hx0 = self._parked.pop(0)
         sh, row = self._shard_of(idx)
+        self._note('_place', self._sig(sh.x))
         sh.x[row] = hx.to(sh.device)
         sh.x0[row] = hx0.to(sh.device)
         if a.cache_on:
@@ -612,7 +736,10 @@ class ContinuousBatchingEngine:
                                     queue_wait_s=now - q.enqueue_time)
             sh, row = self._shard_of(idx)
             noise = initial_noise(req.seed, (1,) + self._sample_shape,
-                                  sh.device)[0]
+                                  sh.device)
+            self._note('_init_noise', self._sig(noise))
+            self._note('_place', self._sig(sh.x))
+            noise = noise[0]
             sh.x[row] = noise
             # the x0 tracker starts at the noise: the first delta is
             # meaningless
@@ -652,7 +779,10 @@ class ContinuousBatchingEngine:
         # the copy, on the main stream before the slot is refilled:
         # admission overwrites the slot row in place, and without a VAE
         # the decode is that row itself
+        self._note('_take', self._sig(sh.x))
         z = (sh.x0 if early else sh.x)[row:row + 1].clone()
+        if sh.pipe.vae is not None:
+            self._note('_decode', self._sig(z))
         done = None
         side = self._sides.get(sh.device)
         if side is None:
@@ -807,8 +937,11 @@ class ContinuousBatchingEngine:
             t_step0 = self.tracer.now() if traced else 0.0
             # every shard runs the entry on its rows; nothing here syncs,
             # so shards on different cards run at once
+            label = self._step_label(pname, guided,
+                                     refresh if caching else None)
             for sh, (t_d, tp_d) in zip(self._shards, ts_d):
                 m_d, g_d = rows(sh, m), rows(sh, g)
+                self._note(label, self._step_sig(sh, caching))
                 if caching:
                     sh.x, sh.x0, d = self._cached_step(
                         sh, pol, guided, refresh, t_d, tp_d, m_d, g_d, key)
@@ -956,10 +1089,11 @@ class ContinuousBatchingEngine:
         context is re-tiled to the new slot count (``_retile_context``:
         its rows must all be equal, even at an unchanged count, since
         requests change slots).
-        ``warm=True`` runs ``warmup(precisions)``'s throwaway requests on
-        the new shards before any parked work re-enters (off the
-        metrics).  ``n_devices`` takes the first N devices of the engine's
-        kind (``serving_mesh``); ``devices`` names the surviving list."""
+        ``warm=True`` runs ``aot_warmup(precisions)`` on the new shards
+        before any parked work re-enters: the kernels loaded and their
+        attributes set on every new device, no tick.  ``n_devices`` takes
+        the first N devices of the engine's kind (``serving_mesh``);
+        ``devices`` names the surviving list."""
         if self.mesh is None:
             raise ValueError('elastic_resize needs a mesh-sharded engine '
                              '(construct with mesh=serving_mesh(...))')
@@ -986,12 +1120,11 @@ class ContinuousBatchingEngine:
         self._slot = [None] * new_slots
         self._parked = []
         self._build_shards()
+        self._reset_signatures()
         self.monitor = StepMonitor(n_hosts=new_ndev)
         self._straggler_flagged = ()
         if warm:
-            phase = self._phase
-            self._warm(precisions)        # the new shards, still empty
-            self._phase = phase
+            self.aot_warmup(precisions=precisions)
         self._parked = parked
         self.metrics.record_resize(old_ndev, new_ndev)
         self.tracer.instant('elastic_resize', cat='engine',
@@ -1003,9 +1136,22 @@ class ContinuousBatchingEngine:
             self._unpark(idx)
         return flushed
 
-    def _warm(self, precisions) -> float:
-        """``warmup``'s throwaway requests; returns their wall seconds."""
+    def warmup(self, precisions=('fp32',),
+               cache_dir: Optional[str] = None) -> float:
+        """Build (all at once) and load the kernels the precisions reach,
+        then run throwaway requests per precision (and a guided one when
+        the engine holds a context), so every step variant has run on
+        every shard before serving; with caching on, each long enough to
+        cross a refresh boundary (a refresh and a skip step).
+        ``cache_dir`` first enables the persistent kernel cache
+        (``compile_cache.enable_persistent_cache``): a cold warmup builds
+        the libraries into it, a warm one in a fresh process loads them.
+        Returns wall seconds, also recorded in the metrics."""
+        if cache_dir is not None:
+            enable_persistent_cache(cache_dir)
         t0 = time.perf_counter()
+        ops.prepare(self._kernels_for(precisions),
+                    [sh.device for sh in self._shards])
         saved = self._throwaway()
         steps = 1 if self.cache_interval <= 1 else self.cache_interval + 1
         try:
@@ -1018,21 +1164,13 @@ class ContinuousBatchingEngine:
                     self.run_until_idle(now=0.0)
         finally:
             self._restore(saved)
-        return time.perf_counter() - t0
-
-    def warmup(self, precisions=('fp32',)) -> float:
-        """Run throwaway requests per precision (and a guided one when the
-        engine holds a context), so the kernels are built and loaded and
-        every step variant has run on every shard before serving; with
-        caching on, each long enough to cross a refresh boundary (a
-        refresh and a skip step).  Returns wall seconds, also recorded in
-        the metrics."""
-        dt = self._warm(precisions)
+        dt = time.perf_counter() - t0
         self.metrics.record_warmup(dt)
         if self.tracer.enabled:
             t1 = self.tracer.now()
             self.tracer.complete('warmup', t1 - dt, t1, cat='engine',
                                  precisions=list(precisions), seconds=dt)
+        trim_cache()    # the persistent cache's size bound, if any
         return dt
 
     def measure_tick_s(self, steps: int = 4) -> float:

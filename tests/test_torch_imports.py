@@ -123,6 +123,12 @@ DRYRUN_MODULES = [
     'src/repro_torch/launch/hillclimb.py',
 ]
 
+# the cold start: the persistent cache over the kernel libraries' build
+COLDSTART_MODULES = [
+    'src/repro_torch/serving/compile_cache.py',
+    'src/repro_torch/kernels/build.py',
+]
+
 
 def _imported_modules(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
@@ -144,7 +150,7 @@ def test_source_never_imports_jax_or_the_reference(source):
                          + SERVING_CLI_MODULES + LM_FAMILY_MODULES
                          + TRAINING_MODULES + MESH_SERVING_MODULES
                          + DDPM_MODULES + SHARDED_TRAINING_MODULES
-                         + DRYRUN_MODULES)
+                         + DRYRUN_MODULES + COLDSTART_MODULES)
 def test_serving_feature_modules_are_covered(source):
     assert source in SOURCES
     mods = {m.split('.')[0] for m in _imported_modules(ROOT / source)}

@@ -312,11 +312,11 @@ def test_init_follows_reference_distributions_moe_and_ssm():
     assert float(mb.in_xbc.w.abs().max()) <= 256 ** -0.5
 
 
-def test_serve_main_runs_on_cpu_and_refuses_diffusion(capsys):
+def test_serve_main_runs_on_cpu_and_refuses_diffusion(capsys, tmp_path):
     """Both branches of ``main`` serve on the CPU, the diffusion branch
     sharded too (the reference's mesh flags, served since ROADMAP item
-    6b's serving half); what it refuses is the reference's compile-cache
-    flags, naming their ROADMAP entry."""
+    6b's serving half), and with the reference's compile-cache flags
+    (the port's cache of kernel libraries)."""
     tserve.main(['--arch', 'internlm2-1.8b', '--preset', 'smoke',
                  '--device', 'cpu', '--prompt', '5', '--tokens', '3'])
     out = capsys.readouterr().out
@@ -332,11 +332,15 @@ def test_serve_main_runs_on_cpu_and_refuses_diffusion(capsys):
     assert '[mesh] slot axis sharded over 2 devices' in out
     assert '[elastic] 1 done -> resizing 2 -> 1 devices' in out
     assert '[serve] 2 done in' in out
-    for flag, item in (('--cache-dir', 'Also not ported'),
-                       ('--cache-max-mb', 'Also not ported')):
-        with pytest.raises(SystemExit):
-            tserve.main(['--diffusion', '--device', 'cpu', flag, '2'])
-        assert item in capsys.readouterr().err
+    from repro_torch.serving import disable_persistent_cache
+    try:
+        tserve.main(['--diffusion', '--device', 'cpu', '--requests', '2',
+                     '--rate', '50', '--slots', '2', '--steps', '2',
+                     '--cache-dir', str(tmp_path), '--cache-max-mb', '2'])
+    finally:
+        disable_persistent_cache()
+    out = capsys.readouterr().out
+    assert '[coldstart] warmup' in out and '[serve] 2 done in' in out
 
 
 def test_serve_main_defaults_to_the_card():

@@ -8,7 +8,9 @@ KV cache's layouts: heads over 'model' with the batch over 'data' (2,
 2); the sequence over 'model' when the KV heads do not divide it (1,
 4); the sequence over 'data' when the batch of 1 does not (2, 2), which
 decodes through ``attention.seq_parallel_core``.  DeepSeek-V2-Lite's
-absorbed MLA and Mamba2's recurrence run per rank (``on_shards``).
+absorbed MLA runs per rank (``on_shards``); Mamba2's and the smoke
+Jamba's (two groups) SSD scan and recurrence run on each rank's own
+heads (``ssm._scan_on_heads``), the state's heads on 'model'.
 
 Tolerance: 1e-5 absolute on logits and cache rows of order 1: the
 sharded products sum over shards in another order (float32, measured
@@ -98,8 +100,11 @@ def _rank(rank, world, port, arch, shape, batch, out):
     ('internlm2-1.8b', (1, 4), 4, {'k': ('data', 'model', None, None)}),
     ('internlm2-1.8b', (2, 2), 1, {'k': (None, 'data', 'model', None)}),
     ('deepseek-v2-lite-16b', (2, 2), 4, {'c_kv': ('data', None, None)}),
-    ('mamba2-2.7b', (2, 2), 4, {'state': ('data', 'model', None, None)})],
-    ids=['heads-on-model', 'rows-on-model', 'rows-on-data', 'mla', 'ssm'])
+    ('mamba2-2.7b', (2, 2), 4, {'state': ('data', 'model', None, None)}),
+    ('jamba-1.5-large-398b', (2, 2), 4,
+     {'state': ('data', 'model', None, None)})],
+    ids=['heads-on-model', 'rows-on-model', 'rows-on-data', 'mla', 'ssm',
+         'ssm-groups'])
 def test_sharded_prefill_and_decode_match_one_device(tmp_path, arch, shape,
                                                      batch, spec):
     out = str(tmp_path / 'errs.pt')

@@ -283,16 +283,6 @@ def test_resize_needs_a_mesh(tpipe):
         tserve.serve_diffusion(IMG, 2, 2, 8.0, 2, resize_to=1, pipe=tpipe)
 
 
-@pytest.mark.parametrize('flag,item', [
-    ('--cache-dir', 'Also not ported'), ('--cache-max-mb', 'Also not')])
-def test_cli_refuses_what_one_card_cannot_serve(capsys, flag, item):
-    with pytest.raises(SystemExit) as exc:
-        tserve.main(['--diffusion', '--device', 'cpu', flag, '2'])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert flag in err and item in err
-
-
 def test_cli_defaults_to_the_card():
     if torch.cuda.is_available():
         pytest.skip('checks the refusal where there is no GPU')
