@@ -7,11 +7,12 @@ Phases, each printing its own lines:
 
 1. device: require CUDA, turn TF32 off for matmuls and cuDNN, print the
    card's name and power limit as ``nvidia-smi`` reports them;
-2. build: compile the three CUDA kernels from ``src/repro_torch/csrc``
+2. build: compile the four CUDA kernels from ``src/repro_torch/csrc``
    (one ``nvcc`` each, in parallel) and print the seconds and ptxas's
    report; count the int8 ``wgmma`` instructions (``IGMMA``) in the W8A8
    library's SASS and the TF32 ones (``HGMMA`` ... ``TF32``) in the flash
-   library's with ``cuobjdump``, and fail if either has none;
+   and convolution libraries' with ``cuobjdump``, and fail if one has
+   none;
 3. kernels: find every shape the Stable Diffusion v1.4 UNet hands each
    kernel at batch = the engine's slot count and at batch = a phase 12
    shard's ``MESH_SPD`` slots (one w8a8 forward with and one without
@@ -39,7 +40,16 @@ Phases, each printing its own lines:
    DeepSeek-V2-Lite, Mamba2 and Qwen2-VL at M = 4000 and M = 4
    (``torch._int_mm``
    refuses M <= 16, so at the decode step it is timed on M padded to 32
-   rows);
+   rows); and the convolution kernel at every shape of one UNet
+   evaluation at ``CONV_EVAL_ROWS`` rows (the batch and Poisson cells'
+   evaluations: a guided tick runs two), of one 512-px VAE decode, and at
+   ``CONV_YARDSTICK``: held against the plain version in float64
+   (``CONV_RTOL`` of the largest output), beside the same error of a
+   one-pass TF32 ``F.conv2d`` (at least ``CONV_TF32_MARGIN`` times the
+   kernel's), and timed beside its bound (3xTF32 operations at 165
+   TFLOP/s, or bytes), the plain version in float32 and ``F.conv2d``
+   alone with TF32 off (the yardstick); launches per evaluation and per
+   decode are held to ``UNET_CONVS`` and ``VAE_CONVS``;
    3b. prng: the threefry generator (``core/prng``) on the card against
    the CPU: bits equal bit for bit at an odd 1-D shape and at 1360 x
    1360, normals within its stated tolerance; the time of one 1360 x
@@ -245,17 +255,17 @@ Phases, each printing its own lines:
    emptied first.  (a) ``python -m repro_torch.launch.serve`` with
    ``COLD_CLI`` (SD v1.4, w8a8, 2 requests at 2 steps) and
    ``--cache-dir``, twice, each in a fresh process: the cold start runs
-   ``nvcc`` for GroupNorm+swish and W8A8 and persists both libraries,
-   the warm one runs no ``nvcc``, adds no library and warms up faster;
-   both warmups and both first ticks printed.  (b) in a third process
-   (``coldstart_main``) on the warm directory, a fresh engine's
-   ``aot_warmup(('fp32', 'w8a8'))`` returns the reference's count (4
-   guided and unguided variants, 3 helpers, the decode) with no
-   ``nvcc`` and both libraries loaded; four requests served after it
+   ``nvcc`` for GroupNorm+swish, W8A8 and the convolution and persists
+   the three libraries, the warm one runs no ``nvcc``, adds no library
+   and warms up faster; both warmups and both first ticks printed.  (b)
+   in a third process (``coldstart_main``) on the warm directory, a fresh
+   engine's ``aot_warmup(('fp32', 'w8a8'))`` returns the reference's
+   count (4 guided and unguided variants, 3 helpers, the decode) with no
+   ``nvcc`` and the three libraries loaded; four requests served after it
    build and load nothing, leave ``compile_stats`` as it was and launch
-   both kernels (the counters set to 0 first).  (c) the CLI again in
-   that process with ``--cache-max-mb`` below either library's size:
-   both are evicted, neither is built again, and it serves on.  Within
+   the three kernels (the counters set to 0 first).  (c) the CLI again in
+   that process with ``--cache-max-mb`` below any library's size: all
+   are evicted, none is built again, and it serves on.  Within
    ``COLD_PHASE_S``.
 
 Every phase prints its seconds (``[time]``).
@@ -478,13 +488,14 @@ DRYRUN_TIMEOUT_S = 900
 
 # phase 16, the cold start: the serving CLI on SD v1.4 at w8a8, a few
 # requests at a few steps, twice in fresh processes on one empty cache
-# directory (cold: nvcc builds GroupNorm+swish and W8A8; warm: loads
-# them); then a fresh engine's aot_warmup over the warm directory, and the
-# CLI again under a size bound below one library's size
+# directory (cold: nvcc builds GroupNorm+swish, W8A8 and the
+# convolution; warm: loads them); then a fresh engine's aot_warmup over
+# the warm directory, and the CLI again under a size bound below one
+# library's size
 COLD_CLI = ('--diffusion', '--model', 'sd-v1.4', '--precision', 'w8a8',
             '--requests', '2', '--rate', '50', '--slots', '2', '--steps',
             '2', '--quality-probe', '0')
-COLD_KERNELS = ('fused_gn_swish', 'w8a8_matmul')
+COLD_KERNELS = ('fused_gn_swish', 'w8a8_matmul', 'conv2d_nhwc')
 COLD_PRECISIONS = ('fp32', 'w8a8')
 COLD_SLOTS, COLD_STEPS = 2, 2
 COLD_MAX_MB = 0.25
@@ -516,13 +527,34 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12           # dense int8 tensor-core peak
 F32_OPS_PER_S = 67e12              # float32 outside the tensor cores
 TF32_OPS_PER_S = 495e12            # dense TF32 tensor-core peak
-TPU_KERNELS = {
+# the convolution kernel: three TF32 products per float32 product
+CONV_OPS_PER_S = TF32_OPS_PER_S / 3
+# its shapes: one SD v1.4 UNet evaluation at the batch cell's 24 and the
+# Poisson cell's 8 rows (a guided tick is two), and a 48-row 64x64 3x3
+# 340 -> 340 convolution, the yardstick against F.conv2d; launches per
+# UNet evaluation (an up level's transposed convolution is four phases)
+# and per 512-px VAE decode
+CONV_EVAL_ROWS = (24, 8)
+CONV_YARDSTICK = (48, 64, 64, 340, 340, 3)
+UNET_CONVS = 75
+VAE_CONVS = 24
+# kernel (3xTF32, the stages summed in float32) against the plain version
+# in float64, relative to the largest output: float32's own rounding over
+# K up to 2720 x 9 terms (F.conv2d in float32 read up to 3.4e-6, the kernel
+# 6.4e-7 at 1360 x 9); a one-pass TF32 product misses it by two orders,
+# and must read at least CONV_TF32_MARGIN times the kernel's error
+CONV_RTOL = 1e-5
+CONV_TF32_MARGIN = 10
+# every hand-written kernel: its source and the TPU kernel it replaces
+# (None: the convolution, which the JAX package leaves to XLA)
+KERNELS = {
     'fused_gn_swish': ('src/repro_torch/csrc/fused_gn_swish.cu',
                        'src/repro/kernels/fused_gn_swish.py:31'),
     'w8a8_matmul': ('src/repro_torch/csrc/w8a8_matmul.cu',
                     'src/repro/kernels/w8a8_matmul.py:52'),
     'flash_attention': ('src/repro_torch/csrc/flash_attention.cu',
                         'src/repro/kernels/flash_attention.py:75'),
+    'conv2d_nhwc': ('src/repro_torch/csrc/conv2d_nhwc.cu', None),
 }
 
 
@@ -818,6 +850,166 @@ def sd_kernel_rows(torch, gen, occupancy, shapes, label):
                              bound_by='bytes' if bound_by == {'bytes'}
                              else 'operations')
         print(f'[kernels] {name}: {label}: ' + json.dumps(summary[name]))
+    return summary
+
+
+def record_convs(ops, fn):
+    """Run ``fn`` with ``ops.conv2d`` recording each call; returns
+    Counter((x shape, w shape, pad_h, pad_w, stride, taps, epilogue
+    operands, written in place))."""
+    seen = collections.Counter()
+    conv = ops.conv2d
+
+    def rec(x, w, pad_h, pad_w, stride=1, *, bias=None, row=None,
+            residual=None, taps=None, out=None):
+        seen[(tuple(x.shape), tuple(w.shape), tuple(pad_h), tuple(pad_w),
+              stride, None if taps is None else tuple(map(tuple, taps)),
+              tuple(t is not None for t in (bias, row, residual)),
+              out is not None)] += 1
+        return conv(x, w, pad_h, pad_w, stride, bias=bias, row=row,
+                    residual=residual, taps=taps, out=out)
+
+    ops.conv2d = rec
+    try:
+        fn()
+    finally:
+        ops.conv2d = conv
+    return seen
+
+
+def conv_row(torch, gen, key):
+    """The convolution kernel at one recorded call shape (``record_convs``'s
+    key) on random operands: its error against the plain version in
+    float64, relative to the largest output, beside the same figure of
+    one-pass TF32 (the operands rounded to TF32, summed in float64: what
+    a TF32 convolution computes at best); then kernel, plain version
+    (float32, TF32 off) and ``F.conv2d`` alone (TF32 off, on an input
+    padded beforehand where the padding is uneven) timed beside the
+    bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import conv2d as cvk
+    xs, ws, pad_h, pad_w, stride, taps, fused, in_place = key
+    x = torch.randn(xs, device='cuda', generator=gen)
+    w = torch.randn(ws, device='cuda', generator=gen) * (
+        ws[1] * ws[2] * ws[3]) ** -0.5
+    grid = cvk.tap_grid(w, taps)
+    N, H, W, Cin = xs
+    Cout, _, kh, kw = grid.shape
+    Ho, Wo = (cvk.out_size(H, kh, pad_h, stride),
+              cvk.out_size(W, kw, pad_w, stride))
+    ep = [torch.randn(shape, device='cuda', generator=gen) if on else None
+          for on, shape in zip(fused, ((Cout,), (N, Cout),
+                                       (N, Ho, Wo, Cout)))]
+    # a phase writes into every other pixel of a twice-as-large output
+    big = (torch.empty((N, 2 * Ho, 2 * Wo, Cout), device='cuda')
+           if in_place else None)
+    out = big[:, 1::2, ::2, :] if in_place else None
+
+    def kernel():
+        return cvk.conv2d_kernel(x, w, pad_h, pad_w, stride, *ep, taps=taps,
+                                 out=out)
+    got = kernel().double()
+    ref = cvk.conv2d_plain(x.double(), grid.double(), pad_h, pad_w, stride,
+                           *[None if t is None else t.double() for t in ep])
+    scale = ref.abs().max().item()
+    err = (got - ref).abs().max().item() / scale
+    one = cvk.conv2d_plain(cvk.split_tf32(x)[0].double(),
+                           cvk.split_tf32(grid)[0].double(), pad_h, pad_w,
+                           stride,
+                           *[None if t is None else t.double() for t in ep])
+    tf32_err = (one - ref).abs().max().item() / scale
+    check(err <= CONV_RTOL, f'conv2d_nhwc {key}: error {err} of the largest '
+          f'output > {CONV_RTOL}')
+    check(tf32_err >= CONV_TF32_MARGIN * err, f'conv2d_nhwc {key}: one-pass '
+          f'TF32 reads {tf32_err}, under {CONV_TF32_MARGIN} x the kernel\'s '
+          f'{err}: the kernel is not 3xTF32')
+    xc = x.permute(0, 3, 1, 2)
+    if pad_h[0] == pad_h[1] >= 0 and pad_w[0] == pad_w[1] >= 0:
+        def library():
+            return F.conv2d(xc, grid, ep[0], stride=stride,
+                            padding=(pad_h[0], pad_w[0]))
+    else:
+        xp = F.pad(xc, (pad_w[0], pad_w[1], pad_h[0], pad_h[1]))
+
+        def library():
+            return F.conv2d(xp, grid, ep[0], stride=stride)
+    row = {'ms': time_ms(torch, kernel, reps=7, calls=4),
+           'plain_ms': time_ms(torch, lambda: cvk.conv2d_plain(
+               x, grid, pad_h, pad_w, stride, *ep), reps=7, calls=4),
+           'library_ms': time_ms(torch, library, reps=7, calls=4)}
+    flops = 2 * N * Ho * Wo * Cout * Cin * kh * kw
+    nbytes = 4 * (x.numel() + 2 * grid.numel() + N * Ho * Wo * Cout
+                  * (1 + fused[2]) + Cout + N * Cout)
+    b_ops, b_bytes = flops / CONV_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    row['bound_ms'] = max(b_ops, b_bytes) * 1e3
+    row['bound_by'] = 'bytes' if b_bytes >= b_ops else 'operations'
+    plan = cvk.conv_plan(N, Ho, Wo, Cout)
+    row['plan'] = {'rows': plan.rows, 'cols': plan.cols,
+                   'box': list(plan.box), 'blocks': plan.blocks}
+    row['tflops'] = flops / row['ms'] / 1e9
+    return row, err, tf32_err
+
+
+def phase_conv(torch, ops, pipe):
+    """Phase 3's convolution rows: every call shape of one SD v1.4 UNet
+    evaluation (w8a8, with a context) at each of ``CONV_EVAL_ROWS`` rows,
+    of one 512-px VAE decode, and ``CONV_YARDSTICK``, each held to the
+    plain version (``conv_row``); launches per evaluation and per decode
+    held to ``UNET_CONVS`` and ``VAE_CONVS``.  Returns the first
+    evaluation's launch-weighted totals (the batch cell's), the largest
+    error of every row and the one-pass TF32 figure beside it."""
+    cfg = pipe.unet_cfg
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    sets = []
+    for rows in CONV_EVAL_ROWS:
+        x = torch.randn((rows, cfg.img_size, cfg.img_size, cfg.in_ch),
+                        device='cuda', generator=gen)
+        t = torch.full((rows,), 500, device='cuda')
+        ctx = torch.randn((rows, 77, cfg.context_dim), device='cuda',
+                          generator=gen)
+        with torch.no_grad():
+            seen = record_convs(ops, lambda: pipe.unet(x, t, ctx, 'w8a8'))
+        check(sum(seen.values()) == UNET_CONVS, f'UNet at {rows} rows: '
+              f'{sum(seen.values())} convolutions, expected {UNET_CONVS}')
+        sets.append((f'per UNet evaluation at {rows} rows', seen))
+    z = torch.randn((1, cfg.img_size, cfg.img_size, pipe.vae.cfg.z_ch),
+                    device='cuda', generator=gen)
+    with torch.no_grad():
+        seen = record_convs(ops, lambda: pipe.vae(z))
+    check(sum(seen.values()) == VAE_CONVS, f'VAE decode: '
+          f'{sum(seen.values())} convolutions, expected {VAE_CONVS}')
+    sets.append(('per 512-px VAE decode', seen))
+    N, H, W, Ci, Co, k = CONV_YARDSTICK
+    sets.append((f'the {N}-row yardstick', collections.Counter(
+        {((N, H, W, Ci), (Co, Ci, k, k), (k // 2, k // 2), (k // 2, k // 2),
+          1, None, (True, False, False), False): 1})))
+    summary, errs = None, []
+    for label, shapes in sets:
+        tot = dict.fromkeys(('ms', 'plain_ms', 'library_ms', 'bound_ms'), 0.0)
+        worst = (0.0, 0.0)
+        for key, count in sorted(shapes.items(), key=str):
+            row, err, tf32_err = conv_row(torch, gen, key)
+            errs.append(err)
+            worst = max(worst, (err, tf32_err))
+            print('[kernels] shape ' + json.dumps(
+                {'kernel': 'conv2d_nhwc', 'shape': {
+                    'x': key[0], 'w': key[1], 'pad_h': key[2],
+                    'pad_w': key[3], 'stride': key[4], 'taps': key[5],
+                    'bias_row_residual': key[6], 'in_place': key[7]},
+                 'calls': count, 'max_abs_err_rel': err,
+                 'tf32_err_rel': tf32_err, 'kernel_ms': row['ms'],
+                 'plain_ms': row['plain_ms'],
+                 'library_ms': row['library_ms'],
+                 'bound_ms': row['bound_ms'], 'bound_by': row['bound_by'],
+                 'tflops': row['tflops'], 'plan': row['plan']}))
+            for k in tot:
+                tot[k] += count * row[k]
+        tot['max_abs_err'], tot['tf32_err'] = worst
+        tot['bound_by'] = 'operations'
+        tot['share_of_bound'] = tot['bound_ms'] / tot['ms']
+        print(f'[kernels] conv2d_nhwc: {label}: ' + json.dumps(tot))
+        summary = summary or tot
+    summary['max_abs_err'] = max(errs)
     return summary
 
 
@@ -2104,9 +2296,14 @@ def phase_mesh(torch, numpy, ops, card, pipe, per_eval, checked):
                                 for k, v in seen.items()}))
             snap = eng.metrics.snapshot()
             n_evals = sum(evals.values())
+            # the convolutions: every evaluation's, then each VAE decode's
+            decodes = ((launches['conv2d_nhwc'] - UNET_CONVS * n_evals)
+                       // VAE_CONVS)
             want = {'fused_gn_swish': per_eval['fused_gn_swish'] * n_evals,
                     'w8a8_matmul': per_eval['w8a8_matmul'] * n_evals,
-                    'flash_attention': 0}
+                    'flash_attention': 0,
+                    'conv2d_nhwc': UNET_CONVS * n_evals
+                    + VAE_CONVS * max(decodes, 1)}
             print(f'[mesh] (i) {name}: {shards} shard(s) x '
                   f'{eng.slots // shards} slots, {snap.ticks} ticks, '
                   f'{n_evals} conditional w8a8 evaluations; launches '
@@ -3078,7 +3275,8 @@ def ddpm_sample_full(torch, numpy, ops, card, pipe):
         want = {'fused_gn_swish': 45 * n_eval,
                 'w8a8_matmul': 0 if policy == 'fp32' else
                 128 * evals[False] + 64 * evals[True],
-                'flash_attention': 0}
+                'flash_attention': 0,
+                'conv2d_nhwc': UNET_CONVS * n_eval + VAE_CONVS}
         steps = pipe.sched.T
         print(f'[ddpm] {card}: SD v1.4 + VAE 512 DDPM {policy} guidance '
               f'{guidance} batch {DDPM_BATCH}, {steps} steps: wall '
@@ -3170,9 +3368,11 @@ def ddpm_step_full(torch, ops, card, pipe, enc):
     check(not bad, f'gradients not finite or zero: {bad[:8]}')
     check(len(gn) == 2 * 44 + 2, f'{len(gn)} GroupNorm+swish parameters')
     check(fwd == {'fused_gn_swish': 45, 'w8a8_matmul': 0,
-                  'flash_attention': 0}, f'loss forward launches {fwd}')
+                  'flash_attention': 0, 'conv2d_nhwc': UNET_CONVS},
+          f'loss forward launches {fwd}')
     check(launches['fused_gn_swish'] == 90 and launches['w8a8_matmul'] == 0
-          and launches['flash_attention'] == 0,
+          and launches['flash_attention'] == 0
+          and launches['conv2d_nhwc'] == 2 * UNET_CONVS,
           f'gradient step launches {launches}')
     check(after < before, f'the step did not lower ddpm_loss: {before} -> '
           f'{after}')
@@ -3556,8 +3756,8 @@ def main() -> int:
 
     # phase 2: build
     t0 = time.perf_counter()
-    libs = build.build(TPU_KERNELS)
-    print(f'[build] {len(TPU_KERNELS)} kernels built in '
+    libs = build.build(KERNELS)
+    print(f'[build] {len(KERNELS)} kernels built in '
           f'{time.perf_counter() - t0:.2f} s')
     for name, log in build.build_logs.items():
         for line in log.splitlines():
@@ -3571,6 +3771,11 @@ def main() -> int:
     print(f'[build] flash_attention SASS: {n_hgmma} TF32 wgmma (HGMMA ... '
           'TF32) instructions')
     check(n_hgmma > 0, 'the flash library holds no TF32 wgmma instruction')
+    n_hgmma = count_hgmma_tf32(libs['conv2d_nhwc'])
+    print(f'[build] conv2d_nhwc SASS: {n_hgmma} TF32 wgmma (HGMMA ... '
+          'TF32) instructions')
+    check(n_hgmma > 0, 'the convolution library holds no TF32 wgmma '
+          'instruction')
     lap('1-2 (device, build)')
 
     # the full-width model, shared by phases 3 and 5
@@ -3588,6 +3793,7 @@ def main() -> int:
     summary, per_eval, checked = phase_kernels(torch, ops, pipe, context)
     check(per_eval['fused_gn_swish'] == 45 and per_eval['w8a8_matmul'] == 128,
           f'SD v1.4 launches per evaluation {per_eval}, expected 45 / 128')
+    summary['conv2d_nhwc'] = phase_conv(torch, ops, pipe)
     # InternLM2 and Granite against one cache row past the prompt,
     # Whisper and Qwen2-VL against serve_lm's prompt + new tokens
     summary['flash_attention'] = phase_flash(
@@ -3696,7 +3902,7 @@ def main() -> int:
     lap('16 (cold start)')
 
     kernels = []
-    for name, (source, replaces) in TPU_KERNELS.items():
+    for name, (source, replaces) in KERNELS.items():
         s = summary[name]
         kernels.append({
             'name': name, 'route': 'cuda', 'source': source,

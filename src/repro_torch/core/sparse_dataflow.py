@@ -16,25 +16,11 @@ the reference's HWIO kernel transposed by ``(3, 2, 0, 1)``.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
-
-def conv_nhwc(x: torch.Tensor, w: torch.Tensor, pad_h: Tuple[int, int],
-              pad_w: Tuple[int, int], stride: int = 1) -> torch.Tensor:
-    """Correlation of NHWC ``x`` with an OIHW kernel under explicit
-    (lo, hi) padding per spatial dim; negative padding crops.  The NHWC
-    tensor is handed to cuDNN as a channels-last NCHW view, so no
-    layout copy is made."""
-    xc = x.permute(0, 3, 1, 2)
-    if pad_h[0] == pad_h[1] >= 0 and pad_w[0] == pad_w[1] >= 0:
-        y = F.conv2d(xc, w, stride=stride, padding=(pad_h[0], pad_w[0]))
-    else:
-        xc = F.pad(xc, (pad_w[0], pad_w[1], pad_h[0], pad_h[1]))
-        y = F.conv2d(xc, w, stride=stride)
-    return y.permute(0, 2, 3, 1)
+from repro_torch.kernels import ops
 
 
 def _pad_a(k: int, s: int) -> int:
@@ -54,7 +40,8 @@ def conv_transpose_dense(x: torch.Tensor, kernel: torch.Tensor,
     xd = x.new_zeros(N, (H - 1) * s + 1, (W - 1) * s + 1, C)
     xd[:, ::s, ::s, :] = x
     ph, pw = _pad_a(kh, s), _pad_a(kw, s)
-    return conv_nhwc(xd, kernel, (ph, kh + s - 2 - ph), (pw, kw + s - 2 - pw))
+    return ops.conv2d(xd, kernel, (ph, kh + s - 2 - ph),
+                      (pw, kw + s - 2 - pw))
 
 
 def _phase_grid(k: int, s: int, phase: int, pad_a: int):
@@ -72,30 +59,37 @@ def _phase_grid(k: int, s: int, phase: int, pad_a: int):
 
 
 def conv_transpose_sparse(x: torch.Tensor, kernel: torch.Tensor,
-                          stride: int) -> torch.Tensor:
-    """Zero-skipping transposed conv via sub-pixel decomposition.
+                          stride: int,
+                          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Zero-skipping transposed conv via sub-pixel decomposition, then
+    ``+ bias`` when one is given (added by each phase's convolution).
 
     x (N, H, W, Cin), kernel (Cout, Cin, kh, kw) -> (N, H*s, W*s, Cout).
     """
     if stride == 1:
-        return conv_transpose_dense(x, kernel, 1)
+        y = conv_transpose_dense(x, kernel, 1)
+        return y if bias is None else y + bias
     N, H, W, _ = x.shape
     cout, _, kh, kw = kernel.shape
     s = stride
     pt, pl = _pad_a(kh, s), _pad_a(kw, s)
-    out = x.new_zeros(N, H * s, W * s, cout)
-    for py in range(s):
-        for px in range(s):
-            gy, gx = _phase_grid(kh, s, py, pt), _phase_grid(kw, s, px, pl)
-            if gy is None or gx is None:
-                continue        # no tap reaches this phase: it stays zero
-            (rows, oy0, oy1), (cols, ox0, ox1) = gy, gx
-            grid = kernel[:, :, rows][:, :, :, cols]
-            # out[i] = sum_d x[i + off0 + d] * grid[d]: pad lo by -off0
-            # and hi by off1 (negative padding crops)
-            out[:, py::s, px::s, :] = conv_nhwc(x, grid, (-oy0, oy1),
-                                                (-ox0, ox1))
-    return out
+    phases = {(py, px): (_phase_grid(kh, s, py, pt),
+                         _phase_grid(kw, s, px, pl))
+              for py in range(s) for px in range(s)}
+    # a phase no tap reaches stays zero; every other is written whole
+    whole = all(gy is not None and gx is not None
+                for gy, gx in phases.values())
+    out = (x.new_empty if whole else x.new_zeros)(N, H * s, W * s, cout)
+    for (py, px), (gy, gx) in phases.items():
+        if gy is None or gx is None:
+            continue
+        (rows, oy0, oy1), (cols, ox0, ox1) = gy, gx
+        # out[i] = sum_d x[i + off0 + d] * grid[d]: pad lo by -off0 and hi
+        # by off1 (negative padding crops); the phase is written in place
+        ops.conv2d(x, kernel, (-oy0, oy1), (-ox0, ox1),
+                   bias=bias if whole else None, taps=(rows, cols),
+                   out=out[:, py::s, px::s, :])
+    return out if whole or bias is None else out + bias
 
 
 def zero_mac_fraction(kh: int, kw: int, stride: int) -> float:

@@ -8,28 +8,32 @@ the tensor's device: a CUDA tensor always launches the hand-written
 kernel, a CPU tensor runs the plain PyTorch version, and any other
 device raises, as does a fake or ``meta`` tensor that claims CUDA (the
 dry run's stand-ins have no memory to hand a kernel).  There is no
-switch and no fallback from one to the other.
+switch and no fallback from one to the other.  ``conv2d``, which the
+reference leaves to XLA, runs a fake or ``meta`` tensor through its
+plain version, which computes shapes and launches nothing, so the models'
+shapes can be traced.
 
 Gradients: the plain versions are differentiable.  On CUDA,
-``fused_gn_swish`` goes through ``GNSwish`` (the kernel forward, a plain
-backward) when a gradient is wanted; the W8A8 and flash kernels have no
-backward, so their wrappers raise when one is wanted rather than return
-an output that autograd cannot trace.
+``fused_gn_swish`` and ``conv2d`` go through ``GNSwish`` and ``Conv2d``
+(the kernel forward, a plain backward) when a gradient is wanted; the
+W8A8 and flash kernels have no backward, so their wrappers raise when one
+is wanted rather than return an output that autograd cannot trace.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.core.quantization import (QTensor, quantize,
                                            quantize_per_channel)
+from repro_torch.kernels import conv2d as _cv
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_gn_swish as _gn
 from repro_torch.kernels import w8a8_matmul as _mm
 
 _KERNEL_MODULES = {'fused_gn_swish': _gn, 'w8a8_matmul': _mm,
-                   'flash_attention': _fa}
+                   'flash_attention': _fa, 'conv2d_nhwc': _cv}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -43,7 +47,7 @@ def reset_launches() -> None:
 
 
 #: the kernels a diffusion engine can reach, which ``prepare`` readies
-PREPARED = ('fused_gn_swish', 'w8a8_matmul')
+PREPARED = ('fused_gn_swish', 'w8a8_matmul', 'conv2d_nhwc')
 
 
 def prepare(names, devices) -> None:
@@ -176,3 +180,33 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                                scale=scale)
     return _fa.flash_attention_bshd_plain(q, k, v, causal=causal,
                                           scale=scale)
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, pad_h: Tuple[int, int],
+           pad_w: Tuple[int, int], stride: int = 1, *,
+           bias: Optional[torch.Tensor] = None,
+           row: Optional[torch.Tensor] = None,
+           residual: Optional[torch.Tensor] = None, taps: _cv.Taps = None,
+           out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Correlation of NHWC ``x`` (N, H, W, Cin) with the OIHW kernel ``w``
+    (Cout, Cin, kh, kw), or the ``taps = (rows, cols)`` of it, under
+    explicit (lo, hi) padding per spatial dim (negative crops), then
+    ``+ bias``, ``+ row[:, None, None, :]`` and ``residual +``, each
+    optional, in that order: (N, Ho, Wo, Cout), written into ``out`` when
+    one is given (a view such as ``y[:, py::2, px::2, :]``).  On CUDA the
+    kernel writes there itself; under a wanted gradient it runs inside
+    ``Conv2d`` and its output is copied in."""
+    if x.device.type == 'cuda' and not _without_memory(x):
+        if not _grad_wanted(x, w, bias, row, residual):
+            return _cv.conv2d_kernel(x, w, pad_h, pad_w, stride, bias, row,
+                                     residual, taps=taps, out=out)
+        y = _cv.Conv2d.apply(x, w, bias, row, residual, pad_h, pad_w,
+                             stride, taps)
+    elif x.device.type in ('cpu', 'meta') or _without_memory(x):
+        y = _cv.conv2d_plain(x, _cv.tap_grid(w, taps), pad_h, pad_w, stride,
+                             bias, row, residual)
+    else:
+        raise ValueError(f'conv2d: no kernel for device {x.device}')
+    if out is None:
+        return y
+    return out.copy_(y)

@@ -46,8 +46,8 @@ class _Res(nn.Module):
 
     def forward(self, x, g):
         h = self.conv1(L.swish(self.gn1(x, g)))
-        h = self.conv2(L.swish(self.gn2(h, g)))
-        return (self.skip(x) if self.skip is not None else x) + h
+        skip = self.skip(x) if self.skip is not None else x
+        return self.conv2(L.swish(self.gn2(h, g)), residual=skip)
 
 
 class _EncLevel(nn.Module):

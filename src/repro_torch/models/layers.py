@@ -8,8 +8,8 @@ Functions on tensors: ``linear`` per precision policy, ``conv2d``,
 reference's ``jax.checkpoint`` policies on a block).  Layouts
 follow the reference at these functions: NHWC / BSD activations and
 ``(in, out)`` linear weights.  Conv kernels are OIHW ``(out, in, kh,
-kw)``, the reference's HWIO kernel transposed, so cuDNN reads them
-without a copy.
+kw)``, the reference's HWIO kernel transposed, as ``F.conv2d`` reads
+them on the CPU (the CUDA kernel keeps its own copy, ``kernels/conv2d``).
 
 The small modules at the end (``Linear``, ``Conv``, ``GroupNorm``,
 ``Embedding``, ``RMSNorm``, ``LayerNorm``, ``MLP``) only hold
@@ -31,10 +31,10 @@ from repro_torch.core import prng
 from repro_torch.core.precision import PrecisionPolicy, resolve
 from repro_torch.core.quantization import (QTensor, quantize,
                                            quantize_per_channel)
-from repro_torch.core.sparse_dataflow import (conv_nhwc,
-                                              conv_transpose_dense,
+from repro_torch.core.sparse_dataflow import (conv_transpose_dense,
                                               conv_transpose_sparse)
 from repro_torch.distributed import sharding as SH
+from repro_torch.kernels import ops
 
 
 def linear(x: torch.Tensor, w: Union[torch.Tensor, QTensor],
@@ -58,7 +58,6 @@ def linear(x: torch.Tensor, w: Union[torch.Tensor, QTensor],
                                   n_channels=pol.n_channels,
                                   first_sample=first_sample).to(x.dtype)
         else:
-            from repro_torch.kernels import ops
             y = ops.w8a8_matmul(x, w).to(x.dtype)
     else:
         y = x @ w.to(x.dtype)
@@ -75,15 +74,17 @@ def _same_pads(size: int, k: int, s: int):
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
-           stride: int = 1) -> torch.Tensor:
-    """SAME-padded convolution: x (N, H, W, Cin), w (Cout, Cin, kh, kw)."""
+           stride: int = 1, *, row: Optional[torch.Tensor] = None,
+           residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """SAME-padded convolution: x (N, H, W, Cin), w (Cout, Cin, kh, kw),
+    then ``+ b``, ``+ row[:, None, None, :]`` (row (N, Cout)) and
+    ``residual +`` (N, Ho, Wo, Cout), each optional, in that order; on
+    CUDA all in the convolution kernel's epilogue (``ops.conv2d``)."""
     _, H, W, _ = x.shape
     _, _, kh, kw = w.shape
-    y = conv_nhwc(x, w, _same_pads(H, kh, stride), _same_pads(W, kw, stride),
-                  stride)
-    if b is not None:
-        y = y + b
-    return y
+    return ops.conv2d(x, w, _same_pads(H, kh, stride),
+                      _same_pads(W, kw, stride), stride, bias=b, row=row,
+                      residual=residual)
 
 
 def conv_transpose2d(x: torch.Tensor, w: torch.Tensor,
@@ -91,8 +92,9 @@ def conv_transpose2d(x: torch.Tensor, w: torch.Tensor,
                      sparse_dataflow: bool = True) -> torch.Tensor:
     """Transposed conv with ``jax.lax.conv_transpose`` semantics; the
     sparse dataflow (paper §IV-C) skips the inserted zeros."""
-    f = conv_transpose_sparse if sparse_dataflow else conv_transpose_dense
-    y = f(x, w, stride)
+    if sparse_dataflow:
+        return conv_transpose_sparse(x, w, stride, b)
+    y = conv_transpose_dense(x, w, stride)
     if b is not None:
         y = y + b
     return y
@@ -306,8 +308,8 @@ class Conv(nn.Module):
         self.w = empty_param((c_out, c_in, kh, kw), device)
         self.b = empty_param((c_out,), device) if bias else None
 
-    def forward(self, x, stride: int = 1):
-        return conv2d(x, self.w, self.b, stride)
+    def forward(self, x, stride: int = 1, *, row=None, residual=None):
+        return conv2d(x, self.w, self.b, stride, row=row, residual=residual)
 
 
 class GroupNorm(nn.Module):

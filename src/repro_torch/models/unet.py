@@ -64,13 +64,14 @@ class ResBlock(nn.Module):
             if c_in != c_out else None
 
     def forward(self, x, t_emb, groups: int):
+        """``skip(x) + conv2(gn2(conv1(gn1(x)) + t_proj(swish(t_emb))))``;
+        the time embedding's add and the skip's go into the convolutions'
+        epilogues (``conv1``'s row, ``conv2``'s residual)."""
         h = ops.fused_gn_swish(x, self.gn1.scale, self.gn1.bias, groups=groups)
-        h = self.conv1(h)
-        h = h + self.t_proj(L.swish(t_emb))[:, None, None, :]
+        h = self.conv1(h, row=self.t_proj(L.swish(t_emb)))
         h = ops.fused_gn_swish(h, self.gn2.scale, self.gn2.bias, groups=groups)
-        h = self.conv2(h)
         skip = self.skip(x) if self.skip is not None else x
-        return skip + h
+        return self.conv2(h, residual=skip)
 
 
 def _mha(q, k, v, n_heads: int) -> torch.Tensor:

@@ -551,10 +551,10 @@ class ContinuousBatchingEngine:
         return out
 
     def _kernels_for(self, precisions) -> List[str]:
-        """The kernels the precisions reach: GroupNorm+swish in every
-        evaluation; W8A8 in a ``w8a8`` evaluation of a UNet with
-        attention (a ``w8a8+noise`` product is a float one)."""
-        names = ['fused_gn_swish']
+        """The kernels the precisions reach: GroupNorm+swish and the
+        convolution in every evaluation; W8A8 in a ``w8a8`` evaluation of
+        a UNet with attention (a ``w8a8+noise`` product is a float one)."""
+        names = ['fused_gn_swish', 'conv2d_nhwc']
         if 'w8a8' in precisions and any(
                 isinstance(m, AttnBlock) for m in self.pipe.unet.modules()):
             names.append('w8a8_matmul')

@@ -424,16 +424,17 @@ def _restart(cache_dir):
 @pytest.mark.skipif(not torch.cuda.is_available(), reason='needs a GPU')
 def test_cold_then_warm_restart_on_the_card(tmp_path):
     """Two fresh processes share one empty cache directory: the cold one
-    runs ``nvcc`` for GroupNorm+swish and W8A8 and persists both, the
-    warm one runs none, adds none and warms up faster; both serve
-    through the kernels."""
+    runs ``nvcc`` for GroupNorm+swish, W8A8 and the convolution and
+    persists the three, the warm one runs none, adds none and warms up
+    faster; both serve through the kernels."""
     d = str(tmp_path / 'kernels')
     cold = _restart(d)
-    assert cold['nvcc'] == 2 and cold['entries'] == 2, cold
+    assert cold['nvcc'] == 3 and cold['entries'] == 3, cold
     warm = _restart(d)
-    assert warm['nvcc'] == 0 and warm['entries'] == 2, warm
+    assert warm['nvcc'] == 0 and warm['entries'] == 3, warm
     assert warm['warmup_s'] < cold['warmup_s'], (cold, warm)
     for run in (cold, warm):
         assert run['launches']['fused_gn_swish'] > 0
         assert run['launches']['w8a8_matmul'] > 0
+        assert run['launches']['conv2d_nhwc'] > 0
     assert np.isfinite(warm['warmup_s'])

@@ -264,5 +264,7 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     tops.w8a8_matmul(torch.randn(3, 8), torch.randn(8, 5))
     q = torch.randn(1, 2, 5, 16)
     tops.flash_attention(q, q, q, causal=True)
+    tops.conv2d(torch.randn(1, 4, 4, 8), torch.randn(5, 8, 3, 3), (1, 1),
+                (1, 1))
     assert tops.launch_counts() == {'fused_gn_swish': 0, 'w8a8_matmul': 0,
-                                    'flash_attention': 0}
+                                    'flash_attention': 0, 'conv2d_nhwc': 0}

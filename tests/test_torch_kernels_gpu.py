@@ -7,6 +7,8 @@ import pytest
 import torch
 
 from repro_torch.core import quantization as tq
+from repro_torch.core import sparse_dataflow as tsd
+from repro_torch.kernels import conv2d as tcv
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import fused_gn_swish as tgn
 from repro_torch.kernels import ops as tops
@@ -298,18 +300,130 @@ def test_kernels_launch_on_the_tensors_card(last_card):
         q, k, v = (torch.randn((6, 1000, 128), device=dev, generator=gen)
                    for _ in range(3))
         fa = tfa.flash_attention_kernel(q, k, v, causal=True)
+        cw = torch.randn((340, 340, 3, 3), device=dev, generator=gen) / 60
+        cv = tops.conv2d(x, cw, (1, 1), (1, 1))
         torch.cuda.synchronize(dev)
         assert torch.cuda.current_device() == 0
     after = tops.launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
-        'fused_gn_swish': 1, 'w8a8_matmul': 2, 'flash_attention': 1}
-    assert all(t.device == dev for t in (gn, mm, small, fa))
+        'fused_gn_swish': 1, 'w8a8_matmul': 2, 'flash_attention': 1,
+        'conv2d_nhwc': 1}
+    assert all(t.device == dev for t in (gn, mm, small, fa, cv))
+    ref = tcv.conv2d_plain(x.double(), cw.double(), (1, 1), (1, 1))
+    assert (cv - ref).abs().max().item() <= CONV_RTOL * ref.abs().max().item()
     assert (gn - tgn.gn_swish_plain(x, sc, bi, 20)).abs().max().item() <= 1e-5
     aq, wq = tq.quantize(a, axis=(1,)), tq.quantize_per_channel(w)
     ref = tmm.w8a8_matmul_plain(aq.q, aq.scale, wq.q, wq.scale.reshape(1, 680))
     assert torch.equal(mm, ref) and torch.equal(small, ref[:4])
     ref = tfa.flash_attention_plain(q, k, v, causal=True)
     assert (fa - ref).abs().max().item() <= 2e-5
+
+
+# The convolution kernel (3xTF32, each stage's products summed in float32)
+# against the plain version in float64, relative to the largest output:
+# float32's own rounding over K up to 2720 x 9 terms (F.conv2d in float32
+# read up to 3.4e-6 on the card, the kernel 6.4e-7); one-pass TF32 reads
+# ~2e-4.
+CONV_RTOL = 1e-5
+
+
+def _conv_case(cuda, N, H, W, cin, cout, k, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((N, H, W, cin), device=cuda, generator=gen)
+    w = torch.randn((cout, cin, k, k), device=cuda, generator=gen) * (
+        cin * k * k) ** -0.5
+    return gen, x, w
+
+
+def _close(got, want):
+    want = want.double()
+    return (got.double() - want).abs().max().item() <= \
+        CONV_RTOL * want.abs().max().item()
+
+
+# (N, H, W, cin, cout, k, stride, pad_h, pad_w): SD v1.4's channel counts
+# and ends, stride 2 with XLA's SAME pads, a phase's asymmetric and
+# negative pads, 1x1, ragged widths and tiles of 128 and 64 pixels
+@pytest.mark.parametrize('N,H,W,cin,cout,k,stride,pad_h,pad_w', [
+    (4, 64, 64, 340, 340, 3, 1, (1, 1), (1, 1)),
+    (4, 64, 64, 4, 340, 3, 1, (1, 1), (1, 1)),
+    (4, 64, 64, 340, 4, 3, 1, (1, 1), (1, 1)),
+    (2, 16, 16, 2040, 1360, 1, 1, (0, 0), (0, 0)),
+    (2, 8, 8, 2720, 1360, 3, 1, (1, 1), (1, 1)),
+    (4, 33, 33, 680, 680, 3, 2, (0, 1), (0, 1)),
+    (3, 17, 13, 40, 130, 3, 2, (1, 1), (0, 1)),
+    (2, 9, 9, 680, 680, 2, 1, (0, -1), (-1, 0)),
+    (1, 20, 200, 3, 3, 3, 1, (1, 1), (1, 1)),
+    (1, 128, 128, 128, 128, 3, 1, (1, 1), (1, 1)),
+])
+def test_conv2d_kernel_on_card(cuda, N, H, W, cin, cout, k, stride, pad_h,
+                               pad_w):
+    gen, x, w = _conv_case(cuda, N, H, W, cin, cout, k)
+    Ho = tcv.out_size(H, k, pad_h, stride)
+    Wo = tcv.out_size(W, k, pad_w, stride)
+    b = torch.randn(cout, device=cuda, generator=gen)
+    row = torch.randn((N, cout), device=cuda, generator=gen)
+    res = torch.randn((N, Ho, Wo, cout), device=cuda, generator=gen)
+    for kw in ({}, {'bias': b}, {'bias': b, 'row': row},
+               {'bias': b, 'residual': res}):
+        before = tops.launch_counts()['conv2d_nhwc']
+        out = tops.conv2d(x, w, pad_h, pad_w, stride, **kw)
+        torch.cuda.synchronize()
+        assert tops.launch_counts()['conv2d_nhwc'] == before + 1
+        ref = tcv.conv2d_plain(x.double(), w.double(), pad_h, pad_w, stride,
+                               **{n: t.double() for n, t in kw.items()})
+        assert out.shape == ref.shape and _close(out, ref), kw
+
+
+def test_conv2d_phases_write_through_output_strides_on_card(cuda):
+    """The sparse transposed convolution's four phases written in place by
+    the kernel, against the dense transposed convolution in float64."""
+    gen, x, w = _conv_case(cuda, 2, 16, 16, 340, 340, 4)
+    b = torch.randn(340, device=cuda, generator=gen)
+    before = tops.launch_counts()['conv2d_nhwc']
+    out = tsd.conv_transpose_sparse(x, w, 2, b)
+    torch.cuda.synchronize()
+    assert tops.launch_counts()['conv2d_nhwc'] == before + 4
+    ref = tsd.conv_transpose_dense(x.double().cpu(), w.double().cpu(), 2) \
+        + b.double().cpu()
+    assert _close(out.cpu(), ref)
+
+
+def test_conv2d_weight_split_is_remade_after_an_update_on_card(cuda):
+    _, x, w = _conv_case(cuda, 2, 8, 8, 64, 64, 3)
+    w = torch.nn.Parameter(w, requires_grad=False)
+    first = tops.conv2d(x, w, (1, 1), (1, 1))
+    with torch.no_grad():
+        w.mul_(-2.0)
+    second = tops.conv2d(x, w, (1, 1), (1, 1))
+    torch.cuda.synchronize()
+    assert _close(second, -2.0 * first.double())
+
+
+def test_conv2d_gradient_on_card(no_tf32):
+    """``Conv2d`` (kernel forward, plain backward) against autograd through
+    ``conv2d_plain`` on the same card inputs, a phase's taps included;
+    both backwards are cuDNN's float32, so only the forwards differ."""
+    gen, x, w = _conv_case(no_tf32, 2, 12, 12, 68, 36, 4)
+    b = torch.randn(36, device=no_tf32, generator=gen)
+    row = torch.randn((2, 36), device=no_tf32, generator=gen)
+    for taps, pads, stride, res_hw in ((None, ((1, 2), (1, 2)), 2, 6),
+                                       (([1, 3], [0, 2]), ((1, 0), (0, 1)),
+                                        1, 12)):
+        res = torch.randn((2, res_hw, res_hw, 36), device=no_tf32,
+                          generator=gen)
+        ins = [x, w, b, row, res]
+        a = [t.clone().requires_grad_() for t in ins]
+        c = [t.clone().requires_grad_() for t in ins]
+        y = tops.conv2d(a[0], a[1], *pads, stride, bias=a[2], row=a[3],
+                        residual=a[4], taps=taps)
+        dout = torch.randn(y.shape, device=no_tf32, generator=gen)
+        y.backward(dout)
+        tcv.conv2d_plain(c[0], tcv.tap_grid(c[1], taps), *pads, stride,
+                         *c[2:]).backward(dout)
+        for ta, tc in zip(a, c):
+            scale = tc.grad.abs().max().item()
+            assert (ta.grad - tc.grad).abs().max().item() <= 1e-5 * scale
 
 
 # The GroupNorm+swish gradient: ``GNSwish`` (kernel forward, plain
