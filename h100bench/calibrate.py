@@ -29,7 +29,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 from harness import common  # noqa: E402
 
 CONTROLS = {'tf32': dict(float_mode='tf32'), 'bf16': dict(float_mode='bf16'),
-            'int4': dict(qbits=4)}
+            'int4': dict(qbits=4), 'noise_off': dict(analog=False),
+            'tick_shift': dict(tick_shift=1)}
 #: the seeds, from the first, that also read the controls
 CONTROL_SEEDS = 3
 

@@ -6,8 +6,10 @@ the end-to-end and per-layer metrics it reports, and the comparison
 that decides ``correct`` (its limits).  The mix names the driver
 (``harness/drivers/<driver>.py``) that runs the port under it.  A
 per-layer metric ``<base>.<suffix>`` is read by ``metrics/<base>.<suffix>.py``
-where that file exists, else by ``metrics/<base>.py``.  So a later cell,
-configuration, mix or metric is a new file, and no file here changes.
+where that file exists, else by ``metrics/<base>.py``.  An LM configuration
+names its model family (``harness/families/<family>.py``).  So a later
+cell, configuration, mix, family or metric is a new file, and no file
+here changes.
 """
 from __future__ import annotations
 
@@ -86,6 +88,15 @@ def metric_reader(name: str) -> ModuleType:
 def driver(name: str) -> ModuleType:
     return load_module(HERE / 'harness' / 'drivers' / f'{name}.py',
                        f'h100bench_driver_{name}')
+
+
+def family(name: str) -> ModuleType:
+    """An LM family's module (``harness/families/<name>.py``): what the LM
+    drivers take from it is listed in ``families/dense.py``."""
+    path = HERE / 'harness' / 'families' / f'{name}.py'
+    if not path.is_file():
+        raise FileNotFoundError(f'no model family named {name!r} ({path})')
+    return load_module(path, 'h100bench_family_' + name.replace('-', '_'))
 
 
 @dataclasses.dataclass

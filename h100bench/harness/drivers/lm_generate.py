@@ -5,16 +5,19 @@
 the prefill and after the decode loop, activations and cache in the
 configuration's float32.
 
-Set-up makes the weights from the seed on the device and warms one
-prefill and two decode steps at each prompt length of the mix.  The
+The configuration names its model family (``harness/families/``), which
+gives the port's ``ArchConfig``, the weights' layout, the reference, the
+cache rows compared and the work counts.  Set-up makes the weights from
+the seed on the device and warms one prefill and two decode steps at
+each prompt length of the mix.  The
 window runs batches of the mix's prompts (``traffic.prompts``) until it
 closes; the batch in flight then stops after the decode step under way.
 
 End-to-end: ``lm_tokens_per_s``, every generated token (the prefill's
 and each decode step's, a cut batch's included) over the window.
 Correct: a sample of the finished batches' sequences, drawn from the
-seed, run through the plain reference (``reference/lm.py``) over prompt
-+ served tokens.  Two numbers: ``served_gap``, the widest gap by which
+seed, run through the family's plain reference over prompt + served
+tokens.  Two numbers: ``served_gap``, the widest gap by which
 a served token's logit lies below the reference's best at its position;
 and ``kv_rel_rms.L<i>`` for each layer i of ``KV_CHECKED``, the cache
 the window's prefill and decode steps wrote for one row of each
@@ -25,7 +28,9 @@ token moves only where rounding tips a near tie, so ``served_gap``
 reads the int8 roundings' rare flips alike at float32 and a step below;
 the first layers' cache, upstream of most int8 roundings, reads the
 float precision itself (layer 0: its projections, norm and cache;
-layer 1: also layer 0's attention, W8A8 products and MLP).
+layer 1: also layer 0's attention, W8A8 products and MLP).  Each of the
+layer's cached tensors (the dense family's keys and values) reads apart,
+``kv_rel_rms.L<i>.<name>``, and the check takes the worst.
 """
 from __future__ import annotations
 
@@ -40,25 +45,12 @@ import torch
 
 from harness import common, traffic, weights
 from harness.trace import Slice, host_range, prime
-from reference import lm as ref
 from reference.numerics import FP32, no_tf32
-from roofline import work as W
 
 #: layers whose cache rows are kept for the comparison (negative: from
 #: the last), and those of them whose distance is a checked number
 KV_KEPT = (0, 1, 2, 3, -1)
 KV_CHECKED = (0, 1)
-
-
-def arch_config(c: dict):
-    from repro_torch.configs.base import ArchConfig
-    return ArchConfig(
-        name=c['name'], family='dense', n_layers=c['num_hidden_layers'],
-        d_model=c['hidden_size'], n_heads=c['num_attention_heads'],
-        n_kv_heads=c['num_key_value_heads'], d_ff=c['intermediate_size'],
-        vocab=c['vocab_size'], act='swish', norm='rmsnorm', rope='rope',
-        rope_theta=c['rope_theta'], kv_repeat=c['kv_repeat'],
-        remat=c.get('remat', 'full'))
 
 
 def _sync(dev):
@@ -71,11 +63,10 @@ def run(r: common.Run) -> common.Outcome:
     from repro_torch.models import transformer as T
     cfg, mix, dev = r.cell.config, r.cell.traffic, torch.device(r.device)
     no_tf32()
-    arch = arch_config(cfg)
-    if cfg.get('rms_norm_eps') != 1e-6:
-        raise ValueError('the port\'s RMSNorm takes eps 1e-6')
+    fam = common.family(cfg['family'])
+    arch = fam.arch_config(cfg)
     model = weights.install(T.LM(arch, device='meta'),
-                            weights.make(ref.param_spec(cfg), r.seed, dev))
+                            weights.make(fam.param_spec(cfg), r.seed, dev))
     dt, B, new = torch.float32, mix['batch'], mix['new_tokens']
     prefill = ST.build_prefill_step(arch, dtype=dt, quant=mix['quant'])
     decode = ST.build_decode_step(arch, dtype=dt, quant=mix['quant'])
@@ -124,9 +115,9 @@ def run(r: common.Run) -> common.Outcome:
             walls.append((n, time.perf_counter() - tb, traced))
         if sl is not None:
             sl.end()
-            work = W.lm_prefill(cfg, B, n, mix['quant'])
+            work = fam.prefill_work(cfg, B, n, mix['quant'])
             for i in range(len(out) - 1):
-                work.add(W.lm_decode(cfg, B, n + i, mix['quant']))
+                work.add(fam.decode_work(cfg, B, n + i, mix['quant']))
             # the same prompts' batch as it runs untraced, for the readers
             # that set the device's time against the batch's wall
             same = [w for m, w, t in walls if m == n and not t]
@@ -139,7 +130,10 @@ def run(r: common.Run) -> common.Outcome:
         if len(out) == new:
             j = int(np.random.default_rng([r.seed, 7, b]).integers(B))
             finished.append((b, ids, torch.cat(out, dim=1).cpu(), j,
-                             _cache_row(state['cache'], arch, j, n + new - 1)))
+                             fam.cache_rows(state['cache'], arch, j,
+                                            n + new - 1,
+                                            _layers(len(state['cache']),
+                                                    KV_KEPT))))
         del state
         b += 1
     t_end = time.perf_counter()
@@ -164,7 +158,7 @@ def run(r: common.Run) -> common.Outcome:
     gc.collect()
     if dev.type == 'cuda':
         torch.cuda.empty_cache()
-    checks, readings, compared = _compare(r, cfg, mix, dev, finished)
+    checks, readings, compared = _compare(r, fam, cfg, mix, dev, finished)
     notes.append(f'compared {compared} served tokens with the reference')
     return common.Outcome(setup_s, e2e, checks, b * B, 0, peak, layers,
                           readings, notes)
@@ -172,15 +166,6 @@ def run(r: common.Run) -> common.Outcome:
 
 def _layers(n_layers: int, which) -> List[int]:
     return sorted({i % n_layers for i in which})
-
-
-def _cache_row(cache, arch, j: int, T: int) -> dict:
-    """Row ``j``'s keys and values at positions 0 .. T-1 in the layers
-    ``KV_KEPT``, one copy of each KV head, on the host."""
-    rep = arch.kv_repeat
-    return {i: tuple(cache[i]['sub0'][n][j, :T, ::rep].cpu()
-                     for n in ('k', 'v'))
-            for i in _layers(len(cache), KV_KEPT)}
 
 
 def _sample(mix: dict, seed: int, finished) -> List[tuple]:
@@ -205,19 +190,24 @@ def _rel_rms(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b).norm() / b.norm().clamp_min(1e-30))
 
 
+def served_gaps(ref_logits: torch.Tensor, served: torch.Tensor) -> torch.Tensor:
+    """How far each served token's logit lies below the reference's best
+    at its position: ref_logits (N, vocab), served (N,) -> (N,)."""
+    best = ref_logits.max(dim=-1).values
+    return best - ref_logits.gather(-1, served[:, None].long())[:, 0]
+
+
 def _kv_gaps(got: dict, want: list) -> dict:
-    """Per kept layer, the keys' and values' relative RMS distance from
-    ``want`` (the reference's per-layer (k, v), batch of one)."""
-    out = {}
-    for i, (k, v) in got.items():
-        out[f'L{i}.k'] = _rel_rms(k.to(want[i][0].device), want[i][0][0])
-        out[f'L{i}.v'] = _rel_rms(v.to(want[i][1].device), want[i][1][0])
-    return out
+    """Per kept layer and cached tensor, the relative RMS distance from
+    ``want`` (the reference's per-layer ``{name: tensor}``, batch of
+    one)."""
+    return {f'L{i}.{n}': _rel_rms(t.to(want[i][n].device), want[i][n][0])
+            for i, row in got.items() for n, t in row.items()}
 
 
-def _compare(r, cfg, mix, dev, finished):
+def _compare(r, fam, cfg, mix, dev, finished):
     sample = _sample(mix, r.seed, finished)
-    p = weights.make(ref.param_spec(cfg), r.seed, dev)
+    p = weights.make(fam.param_spec(cfg), r.seed, dev)
     new = mix['new_tokens']
     checked = _layers(cfg['num_hidden_layers'], KV_CHECKED)
     worst = collections.defaultdict(float)
@@ -229,9 +219,9 @@ def _compare(r, cfg, mix, dev, finished):
         seq = torch.cat([prompt, served[:-1]]).to(dev)[None].long()
         served = served.to(dev)
         kv = [] if kept is not None else None
-        logits = ref.logits(FP32, p, cfg, seq, mix['quant'], last=new,
+        logits = fam.logits(FP32, p, cfg, seq, mix['quant'], last=new,
                             kv=kv)[0]
-        note('served_gap', float(ref.served_gaps(logits, served).max()))
+        note('served_gap', float(served_gaps(logits, served).max()))
         if kept is not None:
             for key, v in _kv_gaps(kept, kv).items():
                 note(f'kv_rel_rms.{key}', v)
@@ -239,12 +229,13 @@ def _compare(r, cfg, mix, dev, finished):
         # the cache it would write
         for name, num in r.controls.items():
             ckv = [] if kept is not None else None
-            first = ref.logits(num, p, cfg, seq, mix['quant'], last=new,
+            first = fam.logits(num, p, cfg, seq, mix['quant'], last=new,
                                kv=ckv)[0].argmax(dim=-1)
             note(f'control_{name}_served_gap',
-                 float(ref.served_gaps(logits, first).max()))
+                 float(served_gaps(logits, first).max()))
             if kept is not None:
-                mine = {i: (ckv[i][0][0], ckv[i][1][0]) for i in kept}
+                mine = {i: {n: t[0] for n, t in ckv[i].items()}
+                        for i in kept}
                 for key, v in _kv_gaps(mine, kv).items():
                     note(f'control_{name}_kv_rel_rms.{key}', v)
             del ckv
@@ -252,8 +243,9 @@ def _compare(r, cfg, mix, dev, finished):
     names = ['served_gap'] + [f'kv_rel_rms.L{i}' for i in checked]
     for pre in [''] + [f'control_{n}_' for n in r.controls]:
         for i in checked:
-            worst[f'{pre}kv_rel_rms.L{i}'] = max(
-                worst[f'{pre}kv_rel_rms.L{i}.{t}'] for t in 'kv')
+            parts = [v for k, v in worst.items()
+                     if k.startswith(f'{pre}kv_rel_rms.L{i}.')]
+            worst[f'{pre}kv_rel_rms.L{i}'] = max(parts, default=0.0)
     if not any(kept is not None for _, _, kept in sample):
         worst.update({n: math.inf for n in names})
     checks = [common.Check(n, worst[n], r.cell.limit(n)) for n in names

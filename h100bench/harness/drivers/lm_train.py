@@ -2,7 +2,10 @@
 build_train_step``: ``lm_loss`` under autograd with the configuration's
 remat, then ``optim/adamw.adamw_update``), float32, on one device.
 
-Set-up makes the weights from the seed on the device, builds the step
+The configuration's model family (``harness/families/``) gives the
+port's ``ArchConfig``, the weights' layout, the reference's forward and
+the step's work count.  Set-up makes the weights from the seed on the
+device, builds the step
 and its AdamW state once, and drives that same object through the first
 three steps of the mix's batches (``traffic.train_batch``, rows that all
 differ), reading what the comparison needs: each step's loss, each
@@ -26,7 +29,6 @@ import torch
 
 from harness import common, traffic, weights
 from harness.trace import Slice, host_range, prime
-from reference import lm as lm_ref
 from reference import train as ref
 from reference.numerics import FP32, no_tf32
 from roofline import work as W
@@ -51,8 +53,9 @@ def run(r: common.Run) -> common.Outcome:
     from repro_torch.optim.adamw import AdamWConfig, init_adamw
     cfg, mix, dev = r.cell.config, r.cell.traffic, torch.device(r.device)
     no_tf32()
-    arch = common.driver('lm_generate').arch_config(cfg)
-    spec = lm_ref.param_spec(cfg)
+    fam = common.family(cfg['family'])
+    arch = fam.arch_config(cfg)
+    spec = fam.param_spec(cfg)
     model = weights.install(T.LM(arch, device='meta'),
                             weights.make(spec, r.seed, dev))
     opt_cfg = AdamWConfig(**mix['adamw'])
@@ -94,7 +97,7 @@ def run(r: common.Run) -> common.Outcome:
         sl.stop()
         w = W.Work()
         for _ in range(n):
-            w.add(W.lm_train_step(cfg, mix['rows'], mix['seq_len']))
+            w.add(fam.train_work(cfg, mix['rows'], mix['seq_len']))
         return common.Layers(sl, w, {'steps': n})
 
     while time.perf_counter() < deadline:
@@ -122,12 +125,12 @@ def run(r: common.Run) -> common.Outcome:
         torch.cuda.empty_cache()
     batches = [batch(i) for i in range(CHECKED_STEPS)]
     p0 = weights.make(spec, r.seed, dev)
-    want = ref.train(FP32, p0, cfg, mix['adamw'], batches)
+    want = ref.train(FP32, fam.forward, p0, cfg, mix['adamw'], batches)
     got = ref.gaps(prog, want)
     checks = [common.Check(n, v, r.cell.limit(n)) for n, v in got.items()]
     readings = dict(got)
     for name, num in r.controls.items():
-        ctl = ref.train(num, p0, cfg, mix['adamw'], batches)
+        ctl = ref.train(num, fam.forward, p0, cfg, mix['adamw'], batches)
         readings.update({f'control_{name}_{n}': v
                          for n, v in ref.gaps(ctl, want).items()})
     notes.append(f'reference losses {want["loss"]}')

@@ -5,8 +5,10 @@ and ``tick``), SD v1.4 + the 512-px VAE decoder.
 Set-up makes the weights and one context row per slot from the seed on
 the device (the context is the seeded stand-in for the text encoder's
 output; a request takes its slot's row), builds the engine with the
-quality probe, early exit and decode overlap off, and runs its
-``warmup`` for the cell's precision.  The window then runs the mix:
+quality probe, early exit and decode overlap off and a noise seed drawn
+from the run's, and runs its ``warmup`` for the mix's precisions
+(``traffic.precision``: one, or one drawn per request).  The window then
+runs the mix:
 
 * ``closed``: ``clients`` callers, each resubmitting when its image
   returns;
@@ -18,7 +20,9 @@ Every time is ``time.perf_counter()``, the clock the engine stamps a
 result's finish with after the image reached the host.  The engine's
 tracer records each request's slot (``slot_assign``), from which the
 tick it was admitted at follows; every occupied slot advances one step
-a tick, so the steps a request ran inside the window are known.
+a tick, so the steps a request ran inside the window, and the tick each
+of its steps ran at, are known.  Its ``step`` events (one per precision
+group a tick) give the traced slice's work.
 
 End-to-end: ``images_per_s`` (each image credited with the share of its
 planned steps that ran inside the window, over the window) and
@@ -26,8 +30,10 @@ planned steps that ran inside the window, over the window) and
 window, an unfinished one a miss).  Correct: a sample of the finished
 requests, drawn from the seed, generated again by the plain reference
 (``reference/sd.py``) from the same seeds, context rows, steps,
-guidance and DeepCache cadence, compared image by image: the worst
-request's relative RMS distance and its largest pixel difference.
+guidance, DeepCache cadence and precision, a noisy request's
+perturbation from the engine's noise seed, its slot and the ticks its
+steps ran at (``reference/noise.py``), compared image by image: the
+worst request's relative RMS distance and its largest pixel difference.
 """
 from __future__ import annotations
 
@@ -35,14 +41,16 @@ import collections
 import gc
 import math
 import time
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
 
 from harness import common, traffic, weights
+from harness import precision as PR
 from harness.trace import Slice, host_range, prime
 from reference import sd as ref
+from reference.noise import Draws
 from reference.numerics import FP32, no_tf32
 from roofline import work as W
 
@@ -60,6 +68,11 @@ def _spec(cfg: dict) -> list:
 
 def _split(p: Dict[str, torch.Tensor], prefix: str):
     return {n[len(prefix):]: t for n, t in p.items() if n.startswith(prefix)}
+
+
+def noise_seed(seed: int) -> int:
+    """The engine's ``w8a8+noise`` seed, drawn from the run's."""
+    return int(np.random.default_rng([seed, 6]).integers(0, 2 ** 31 - 1))
 
 
 def _engine(cfg: dict, mix: dict, seed: int, dev):
@@ -82,8 +95,8 @@ def _engine(cfg: dict, mix: dict, seed: int, dev):
     engine = ContinuousBatchingEngine(
         pipe, slots=mix['slots'], context=context, quality_probe=0,
         cache_interval=mix['cache_interval'], overlap_decode=False,
-        tracer=Tracer())
-    engine.warmup(precisions=(mix['precision'],))
+        tracer=Tracer(), noise_seed=noise_seed(seed))
+    engine.warmup(precisions=traffic.precisions(mix))
     return engine
 
 
@@ -91,7 +104,7 @@ def _request(mix: dict, r: dict):
     from repro_torch.serving.api import GenerationRequest
     return GenerationRequest(request_id=r['id'], seed=r['seed'],
                              steps=mix['steps'], guidance=mix['guidance'],
-                             precision=mix['precision'],
+                             precision=r['precision'],
                              cache_interval=mix['cache_interval'])
 
 
@@ -100,18 +113,20 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def _tick_work(cfg: dict, mix: dict, full: bool, skip: bool) -> W.Work:
-    """The UNet evaluations of one tick: per plan entry, the slot buffer
-    evaluated with the context and, when guided, without."""
+def _slice_work(cfg: dict, mix: dict, steps, ticks) -> W.Work:
+    """The UNet evaluations of the engine ticks ``ticks``: per step (a
+    plan entry: a precision group's refresh or skip pass), the slot
+    buffer evaluated with the context and, when guided, without."""
     w = W.Work()
-    quant = mix['precision'] == 'w8a8'
-    for kind, ran in ((True, full), (False, skip)):
-        if ran:
+    for e in steps:
+        if e.tick in ticks:
+            gemm = PR.of(e.args['precision']).int8_gemm
+            full = e.args['refresh']
             w.add(W.sd_unet_eval(cfg['unet'], mix['slots'],
-                                 cfg['context_tokens'], quant, kind))
-            if mix['guidance'] > 0:
-                w.add(W.sd_unet_eval(cfg['unet'], mix['slots'], 0, quant,
-                                     kind))
+                                 cfg['context_tokens'], gemm, full))
+            if e.args['guided']:
+                w.add(W.sd_unet_eval(cfg['unet'], mix['slots'], 0, gemm,
+                                     full))
     return w
 
 
@@ -142,6 +157,7 @@ def run(r: common.Run) -> common.Outcome:
     t0 = time.perf_counter()
     deadline = t0 + r.seconds
     tick_at: Dict[float, int] = {}          # a tick's `now` -> its index
+    eng_tick: List[int] = []                # a tick's index -> the engine's
     window_ticks = 0
     t_end = None
     results = {}
@@ -153,8 +169,13 @@ def run(r: common.Run) -> common.Outcome:
     in_flight = 0
     layers = None
     sl = None
-    work = W.Work()
-    prev = (engine.metrics.full_steps, engine.metrics.cached_steps)
+    trace_end = None
+
+    def submit(q, now):
+        q['precision'] = traffic.precision(mix, r.seed, q['id'])
+        submitted[q['id']] = q
+        engine.submit(_request(mix, q), now=now)
+
     while True:
         now = time.perf_counter()
         if t_end is None and now >= deadline:
@@ -163,29 +184,24 @@ def run(r: common.Run) -> common.Outcome:
             window_ticks = len(tick_at)
             if sl is not None:      # the window closed inside the slice
                 sl.end()
-                layers = common.Layers(sl, work,
+                trace_end = window_ticks
+                layers = common.Layers(sl, None,
                                        {'ticks': window_ticks - trace_from})
                 sl = None
             # every request due in the window is sent, the last ones now
             while pending and pending[0]['due'] < r.seconds:
-                q = pending.pop(0)
-                submitted[q['id']] = q
-                engine.submit(_request(mix, q), now=now)
+                submit(pending.pop(0), now)
         if t_end is not None:
             if closed or all(q['id'] in results for q in due_in_window) \
                     or now > t_end + mix['drain_s']:
                 break
         if closed and t_end is None:
             while in_flight < mix['clients']:
-                q = next(reqs)
-                submitted[q['id']] = q
-                engine.submit(_request(mix, q), now=now)
+                submit(next(reqs), now)
                 in_flight += 1
         elif not closed and t_end is None:
             while pending and t0 + pending[0]['due'] <= now:
-                q = pending.pop(0)
-                submitted[q['id']] = q
-                engine.submit(_request(mix, q), now=now)
+                submit(pending.pop(0), now)
         if not engine.busy:
             if t_end is None:
                 nxt = t0 + pending[0]['due'] if pending else deadline
@@ -199,24 +215,24 @@ def run(r: common.Run) -> common.Outcome:
             trace_from = k
             sl = Slice(dev).start()
         tick_at[now] = k
+        eng_tick.append(engine.metrics.ticks)
         with host_range('engine.tick'):
             out = engine.tick(now=now, wall_clock=True)
         for res in out:
             results[res.request_id] = res
             in_flight -= 1
-        m = engine.metrics
-        cur = (m.full_steps, m.cached_steps)
-        if sl is not None:
-            work.add(_tick_work(cfg, mix, cur[0] > prev[0], cur[1] > prev[1]))
-            if trace_n is not None and k + 1 == trace_from + trace_n:
-                sl.end()
-                layers = common.Layers(sl, work, {'ticks': trace_n})
-                sl = None
-        prev = cur
+        if sl is not None and trace_n is not None \
+                and k + 1 == trace_from + trace_n:
+            sl.end()
+            trace_end = k + 1
+            layers = common.Layers(sl, None, {'ticks': trace_n})
+            sl = None
     _sync(dev)
     if layers is not None:
         # reduced only now: its seconds of work would hold up requests
         layers.slice.stop()
+        layers.work = _slice_work(cfg, mix, engine.tracer.select(name='step'),
+                                  set(eng_tick[trace_from:trace_end]))
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == 'cuda' else 0
 
     # the window's numbers
@@ -253,25 +269,52 @@ def run(r: common.Run) -> common.Outcome:
     served = {i: results[i].image for i in pick}
     slot_of = {i: admitted[i][1] for i in pick}
     seed_of = {i: submitted[i]['seed'] for i in pick}
+    prec_of = {i: submitted[i]['precision'] for i in pick}
+    draws = _draws(noise_seed(r.seed), pick, admitted, eng_tick, steps)
     del engine, results
     gc.collect()
     if dev.type == 'cuda':
         torch.cuda.empty_cache()
+    t_ref = time.perf_counter()
     checks, readings = _compare(r, cfg, mix, dev, pick, served, slot_of,
-                                seed_of)
+                                seed_of, prec_of, draws)
     if not pick:
         checks = [common.Check(c.name, math.inf, c.limit) for c in checks]
-    notes.append(f'compared {len(pick)} images with the reference')
+    notes.append(f'compared {len(pick)} images with the reference in '
+                 f'{time.perf_counter() - t_ref:.1f} s')
     return common.Outcome(setup_s, e2e, checks, attempted, failed, peak,
                           layers, readings, notes)
 
 
-def _compare(r, cfg, mix, dev, pick, served, slot_of, seed_of):
+def _draws(seed: int, pick, admitted, eng_tick: List[int],
+           steps: int) -> Dict[int, Draws]:
+    """Per picked request, what a noisy one's perturbation is drawn from:
+    the engine tick of each of its steps, its slot, and at those ticks
+    the step index of the request then in slot 0 (its timestep is folded
+    into the keys)."""
+    slot0: Dict[int, int] = {}
+    for a, s in admitted.values():
+        if s == 0:
+            for i in range(min(steps, len(eng_tick) - a)):
+                slot0[eng_tick[a + i]] = i
+    out = {}
+    for rid in pick:
+        a, s = admitted[rid]
+        ticks = [eng_tick[a + i] for i in range(steps)]
+        out[rid] = Draws(seed, ticks, s,
+                         {k: slot0[k] for k in ticks if k in slot0})
+    return out
+
+
+def _compare(r, cfg, mix, dev, pick, served, slot_of, seed_of, prec_of,
+             draws):
     p = weights.make(_spec(cfg), r.seed, dev)
     up, vp = _split(p, 'unet.'), _split(p, 'vae.')
     context = ref.context_rows(r.seed, mix['slots'], cfg['context_tokens'],
                                cfg['unet']['context_dim'], dev)
-    quant = mix['precision'] == 'w8a8'
+    groups = collections.defaultdict(list)
+    for i in pick:
+        groups[prec_of[i]].append(i)
     # the worst request's distance; each control's, in the program's place
     worst = collections.defaultdict(float)
 
@@ -282,11 +325,17 @@ def _compare(r, cfg, mix, dev, pick, served, slot_of, seed_of):
         worst[prefix + 'image_max_abs'] = max(worst[prefix + 'image_max_abs'],
                                               mx)
 
-    for lo in range(0, len(pick), REF_BATCH):
-        ids = pick[lo:lo + REF_BATCH]
+    # a noisy group in one call, whose requests' steps share each tick's
+    # draws; the others REF_BATCH at a time
+    batches = [(pr, ids[lo:lo + size]) for pr, ids in sorted(groups.items())
+               for size in [len(ids) if PR.of(pr).noisy else REF_BATCH]
+               for lo in range(0, len(ids), size)]
+    for pr, ids in batches:
+        P = PR.of(pr)
         ctx = context[[slot_of[i] for i in ids]]
         args = (up, vp, cfg, [seed_of[i] for i in ids], ctx, mix['steps'],
-                mix['guidance'], quant, mix['cache_interval'])
+                mix['guidance'], P.quant, mix['cache_interval'],
+                [draws[i] for i in ids] if P.noisy else None)
         images = ref.generate(FP32, *args)
         for j, i in enumerate(ids):
             note('', torch.from_numpy(served[i]).to(dev), images[j])

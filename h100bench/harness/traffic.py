@@ -15,9 +15,11 @@ Keys a mix may hold, by ``arrivals``:
   vocabulary;
 * ``train``: one training batch a step, ``rows`` x ``seq_len`` tokens.
 
-Image requests carry ``steps``, ``guidance``, ``precision`` and
-``cache_interval`` from the mix and a seed of their own drawn from the
-run's seed.
+Image requests carry ``steps``, ``guidance`` and ``cache_interval`` from
+the mix and a seed of their own drawn from the run's seed.  A mix's
+``precision`` is one name (``fp32``, ``w8a8``, ``w8a8+noise``), which
+every request carries, or a ``{name: weight}`` map, from which each
+request's is drawn (``precision``).
 """
 from __future__ import annotations
 
@@ -45,6 +47,24 @@ def image_requests(mix: dict, seed: int, seconds: float) -> Iterator[Dict]:
             req['due'] = float(dues[k])
         yield req
         k += 1
+
+
+def precisions(mix: dict) -> List[str]:
+    """The precisions a mix's requests carry, sorted."""
+    p = mix['precision']
+    return [p] if isinstance(p, str) else sorted(p)
+
+
+def precision(mix: dict, seed: int, rid: int) -> str:
+    """Request ``rid``'s precision: the mix's one name, or a draw from
+    its ``{name: weight}`` map on a stream of the seed and the request's
+    own, so that the same seed gives every request the same one."""
+    p = mix['precision']
+    if isinstance(p, str):
+        return p
+    names = sorted(p)
+    w = np.array([float(p[n]) for n in names])
+    return names[int(_rng(seed, 8, rid).choice(len(names), p=w / w.sum()))]
 
 
 def poisson_dues(mix: dict, seconds: float) -> np.ndarray:

@@ -128,9 +128,3 @@ def logits(num: Numerics, p: P, c: dict, tokens: torch.Tensor,
            kv: Optional[list] = None) -> torch.Tensor:
     return forward(num, p, c, tokens, quant, last, kv=kv)
 
-
-def served_gaps(ref_logits: torch.Tensor, served: torch.Tensor) -> torch.Tensor:
-    """How far each served token's logit lies below the reference's best
-    at its position: ref_logits (N, vocab), served (N,) -> (N,)."""
-    best = ref_logits.max(dim=-1).values
-    return best - ref_logits.gather(-1, served[:, None].long())[:, 0]

@@ -12,6 +12,10 @@ away from zero), as the tensor cores take them, products and sums in
 float32: the control one precision below float32 with TF32 off.
 bfloat16: operands rounded to 7 bits of mantissa, products and sums in
 float32, as the tensor cores take bfloat16: a control two steps below.
+
+A noisy request's controls (``noise.py``): its analog perturbation left
+out (the plain W8A8 rule in its place), or drawn from the keys of the
+tick after the one each step ran at.
 """
 from __future__ import annotations
 
@@ -49,9 +53,13 @@ def quantize(x: torch.Tensor, dim: int, qbits: int = 8):
 class Numerics:
     """How a reference computes: ``float_mode`` None (float32, TF32 off),
     'tf32' or 'bf16'; ``qbits`` of the W8A8 products (8, or 4 for a
-    control)."""
+    control); ``analog``: a noisy request's perturbation drawn (False: a
+    control without it); ``tick_shift``: added to the tick a noisy step's
+    keys fold in (1: a control)."""
     float_mode: Optional[str] = None
     qbits: int = 8
+    analog: bool = True
+    tick_shift: int = 0
 
     def op(self, x: torch.Tensor) -> torch.Tensor:
         """A float product's operand; under TF32 the rounding passes the

@@ -1,8 +1,12 @@
-"""A frozen copy of the threefry-2x32 draws a diffusion request's initial
-noise comes from (``jax.random``'s partitionable layout): ``PRNGKey``,
-``split`` and ``normal``, with XLA's float32 erfinv polynomial.  The
-reference works a request's noise out again from its seed with these,
-on the CPU, as the served path draws it.  Plain torch and numpy."""
+"""A frozen copy of the threefry-2x32 draws the served path takes its
+randomness from (``jax.random``'s partitionable layout): ``PRNGKey``,
+``fold_in``, ``split`` and ``normal``, with XLA's float32 erfinv
+polynomial.  The reference works a request's initial noise out again
+from its seed with these, and a noisy request's analog perturbation from
+the engine's noise seed, its ticks and its slot (``noise.py``), as the
+served path draws them.  Element i of a draw depends only on the key and
+i, so ``normal_at`` draws any elements of a larger draw by their
+counters.  Plain torch and numpy."""
 from __future__ import annotations
 
 import math
@@ -62,12 +66,15 @@ def PRNGKey(seed: int) -> Key:
     return 0, int(seed) & MASK
 
 
+def fold_in(key: Key, data: int) -> Key:
+    return _threefry_int(key, 0, int(data) & MASK)
+
+
 def split(key: Key, num: int = 2):
     return tuple(_threefry_int(key, i >> 32, i & MASK) for i in range(num))
 
 
-def _uniform_lo_1(key: Key, n: int) -> torch.Tensor:
-    idx = torch.arange(n, dtype=torch.int64)
+def _uniform_lo_1(key: Key, idx: torch.Tensor) -> torch.Tensor:
     y1, y2 = _threefry(key, idx >> 32, idx & MASK)
     bits = (y1 ^ y2) >> 9 | 0x3F800000
     f = bits.to(torch.int32).view(torch.float32) - 1.0
@@ -82,15 +89,25 @@ def _horner(coeffs, w):
     return p
 
 
-def normal(key: Key, shape) -> torch.Tensor:
-    """``jax.random.normal(key, shape)`` in float32, on the CPU."""
+def normal(key: Key, shape, offset: int = 0, device=None) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` in float32 on ``device`` (the
+    CPU by default); ``offset``: the elements from ``offset`` on of a
+    larger draw."""
     shape = tuple(int(s) for s in shape)
-    x = _uniform_lo_1(key, math.prod(shape))
+    idx = torch.arange(offset, offset + math.prod(shape), dtype=torch.int64,
+                       device=device)
+    return normal_at(key, idx).reshape(shape)
+
+
+def normal_at(key: Key, idx: torch.Tensor) -> torch.Tensor:
+    """Elements ``idx`` (an int64 tensor of counters) of any float32
+    ``jax.random.normal`` draw from ``key``, on ``idx``'s device."""
+    x = _uniform_lo_1(key, idx)
     w = -torch.log1p(x * -x)
     p = torch.where(w < 5.0, _horner(_ERFINV_LT5, w - 2.5),
                     _horner(_ERFINV_GE5, w.sqrt() - 3.0)) * x
     p = torch.where(x.abs() == 1.0, x * math.inf, p)
-    return (p * _SQRT2).reshape(shape)
+    return p * _SQRT2
 
 
 def initial_noise(seed: int, shape) -> torch.Tensor:

@@ -27,12 +27,14 @@ Imports torch and numpy only: no kernel, cache or engine of the program.
 """
 from __future__ import annotations
 
+import collections
 import math
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from .noise import Draws, Stream, bases
 from .numerics import Numerics
 from .prng import initial_noise
 
@@ -211,12 +213,14 @@ def mha(num, q, k, v, heads: int):
     return o.reshape(B, S, C)
 
 
-def attn_block(num, p, name, x, g, heads, context, quant):
+def attn_block(num, p, name, x, g, heads, context, quant, noise=None):
     B, H, W, C = x.shape
 
     def lin(proj, v):
-        return num.linear(v, p[f'{name}.{proj}.w'], p.get(f'{name}.{proj}.b'),
-                          quant)
+        w, b = p[f'{name}.{proj}.w'], p.get(f'{name}.{proj}.b')
+        if noise is not None:
+            return noise.linear(num, v, w, b)
+        return num.linear(v, w, b, quant)
 
     t = groupnorm(x, p[f'{name}.gn.scale'], p[f'{name}.gn.bias'],
                   g).reshape(B, H * W, C)
@@ -241,10 +245,12 @@ def timestep_embedding(t, dim: int):
 # ---------------------------------------------------------------------------
 
 def unet(num: Numerics, p: P, c: dict, x, t, context, quant: bool,
-         deep: Optional[torch.Tensor] = None):
+         deep: Optional[torch.Tensor] = None,
+         noise: Optional[Stream] = None):
     """Predicted noise of x (B, H, W, C) at timesteps t (B,), and the
     activation entering the last up level.  ``deep`` given: a DeepCache
-    skip pass that takes it instead of computing it."""
+    skip pass that takes it instead of computing it.  ``noise`` given:
+    every attention projection perturbed, its keys from that stream."""
     g, heads, nres = c['groups'], c['n_heads'], c['n_res_blocks']
     L = len(c['ch_mults'])
     temb = timestep_embedding(t, c['base_ch'])
@@ -258,7 +264,7 @@ def unet(num: Numerics, p: P, c: dict, x, t, context, quant: bool,
             h = res_block(num, p, f'down.{lvl}.blocks.{j}.res', h, g, temb)
             if _attn_at(c, lvl):
                 h = attn_block(num, p, f'down.{lvl}.blocks.{j}.attn', h, g,
-                               heads, context, quant)
+                               heads, context, quant, noise)
             hs.append(h)
         return h
 
@@ -269,7 +275,7 @@ def unet(num: Numerics, p: P, c: dict, x, t, context, quant: bool,
             h = res_block(num, p, f'up.{i}.blocks.{j}.res', h, g, temb)
             if _attn_at(c, lvl):
                 h = attn_block(num, p, f'up.{i}.blocks.{j}.attn', h, g,
-                               heads, context, quant)
+                               heads, context, quant, noise)
         if lvl > 0:
             h = conv_transpose(num, p, f'up.{i}.upconv', h)
         return h
@@ -283,7 +289,8 @@ def unet(num: Numerics, p: P, c: dict, x, t, context, quant: bool,
                 h = conv(num, p, f'down.{lvl}.down', h, stride=2)
                 hs.append(h)
         h = res_block(num, p, 'mid.res1', h, g, temb)
-        h = attn_block(num, p, 'mid.attn', h, g, heads, context, quant)
+        h = attn_block(num, p, 'mid.attn', h, g, heads, context, quant,
+                       noise)
         h = res_block(num, p, 'mid.res2', h, g, temb)
         for i in range(L - 1):
             h = up_level(i, h)
@@ -323,34 +330,98 @@ def ddim_update(ab, x, eps, t: int, t_prev: int):
         * eps
 
 
+#: rows the VAE decoder takes at once
+DECODE_ROWS = 8
+
+
 @torch.no_grad()
 def generate(num: Numerics, unet_p: P, vae_p: P, cfg: dict,
              seeds: Sequence[int], context: Optional[torch.Tensor],
              steps: int, guidance: float, quant: bool,
-             cache_interval: int = 1) -> torch.Tensor:
+             cache_interval: int = 1,
+             draws: Optional[Sequence[Draws]] = None) -> torch.Tensor:
     """Images (B, 512, 512, 3) of requests ``seeds`` (one context row
     each, (B, 77, 768), or None): DDIM over ``steps`` steps from each
     seed's initial noise, guided when ``guidance > 0``, with a full pass
-    every ``cache_interval`` steps and DeepCache skip passes between."""
+    every ``cache_interval`` steps and DeepCache skip passes between.
+    ``draws`` given (one per request): the requests are noisy, and each
+    step runs at its request's engine tick, with the requests of that
+    tick, its projections perturbed as ``noise`` states (unless
+    ``num.analog`` is off: then on the W8A8 rule alone)."""
     c, v = cfg['unet'], cfg['vae']
     dev = context.device if context is not None else unet_p['conv_in.w'].device
     shape = (c['img_size'], c['img_size'], c['in_ch'])
     x = torch.stack([initial_noise(s, (1,) + shape)[0] for s in seeds]).to(dev)
     ab = alpha_bars(c['timesteps'], dev)
     ts = ddim_timesteps(c['timesteps'], steps)
-    deep_c = deep_u = None
-    for i, t in enumerate(ts):
-        full = cache_interval <= 1 or i % cache_interval == 0
-        tb = torch.full((len(seeds),), int(t), dtype=torch.long, device=dev)
-        eps, deep_c = unet(num, unet_p, c, x, tb, context, quant,
-                           None if full else deep_c)
-        if guidance > 0.0:
-            eps_u, deep_u = unet(num, unet_p, c, x, tb, None, quant,
-                                 None if full else deep_u)
-            eps = eps_u + guidance * (eps - eps_u)
-        t_prev = int(ts[i + 1]) if i + 1 < len(ts) else -1
-        x = ddim_update(ab, x, eps, int(t), t_prev)
-    return vae_decode(num, vae_p, v, x)
+    if draws is not None and num.analog:
+        x = _by_tick(num, unet_p, c, x, context, ts, ab, guidance,
+                     cache_interval, draws)
+    else:
+        deep_c = deep_u = None
+        for i, t in enumerate(ts):
+            full = cache_interval <= 1 or i % cache_interval == 0
+            tb = torch.full((len(seeds),), int(t), dtype=torch.long,
+                            device=dev)
+            eps, deep_c = unet(num, unet_p, c, x, tb, context, quant,
+                               None if full else deep_c)
+            if guidance > 0.0:
+                eps_u, deep_u = unet(num, unet_p, c, x, tb, None, quant,
+                                     None if full else deep_u)
+                eps = eps_u + guidance * (eps - eps_u)
+            t_prev = int(ts[i + 1]) if i + 1 < len(ts) else -1
+            x = ddim_update(ab, x, eps, int(t), t_prev)
+    return torch.cat([vae_decode(num, vae_p, v, x[i:i + DECODE_ROWS])
+                      for i in range(0, len(x), DECODE_ROWS)])
+
+
+def _by_tick(num: Numerics, p: P, c: dict, x, context, ts, ab,
+             guidance: float, cache_interval: int, draws: Sequence[Draws]):
+    """The noisy requests' DDIM, tick by tick: at each engine tick the
+    requests that stepped there step together, each at its own step
+    index, the refresh and skip passes apart, on that tick's keys."""
+    at: Dict[int, List] = collections.defaultdict(list)
+    for j, d in enumerate(draws):
+        for i, k in enumerate(d.ticks):
+            at[k].append((j, i))
+    cached = cache_interval > 1
+    deep_c: Dict[int, torch.Tensor] = {}
+    deep_u: Dict[int, torch.Tensor] = {}
+    x = x.clone()
+    for k in sorted(at):
+        step0 = draws[at[k][0][0]].slot0_step.get(k)
+        t0 = int(ts[step0]) if step0 is not None else 0
+        kc, ku = bases(draws[0].seed, k, t0, cached, num.tick_shift)
+        full = [(j, i) for j, i in at[k] if not cached
+                or i % cache_interval == 0]
+        skip = [(j, i) for j, i in at[k] if (j, i) not in full]
+        for part, refresh in ((full, True), (skip, False)):
+            if not part:
+                continue
+            rows = [j for j, _ in part]
+            slots = [draws[j].slot for j in rows]
+            xr = x[rows]
+            tb = torch.tensor([int(ts[i]) for _, i in part],
+                              dtype=torch.long, device=x.device)
+            ctx = context[rows] if context is not None else None
+            dc = None if refresh else torch.stack([deep_c[j] for j in rows])
+            eps, dc = unet(num, p, c, xr, tb, ctx, True, dc,
+                           Stream(kc, slots))
+            if guidance > 0.0:
+                du = None if refresh else torch.stack([deep_u[j]
+                                                       for j in rows])
+                eps_u, du = unet(num, p, c, xr, tb, None, True, du,
+                                 Stream(ku, slots))
+                eps = eps_u + guidance * (eps - eps_u)
+            for r, (j, i) in enumerate(part):
+                if refresh and cached:
+                    deep_c[j] = dc[r]
+                    if guidance > 0.0:
+                        deep_u[j] = du[r]
+                t_prev = int(ts[i + 1]) if i + 1 < len(ts) else -1
+                x[j] = ddim_update(ab, xr[r:r + 1], eps[r:r + 1], int(ts[i]),
+                                   t_prev)[0]
+    return x
 
 
 def context_rows(seed: int, rows: int, tokens: int, dim: int,

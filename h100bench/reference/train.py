@@ -11,7 +11,8 @@ configuration states it:
 at step k = 1, 2, ..., with ``lr(k)`` a linear warmup over
 ``warmup_steps`` then a cosine decay to ``min_lr_frac`` at
 ``total_steps``.  Rows go through one at a time, their gradients summed.
-Imports torch only.
+The model is the family's plain ``forward(num, p, c, tokens, remat=True)``
+(``reference/lm.py``'s for the dense LM).  Imports torch only.
 """
 from __future__ import annotations
 
@@ -21,7 +22,6 @@ from typing import Dict, List, Tuple
 import torch
 import torch.nn.functional as F
 
-from .lm import forward
 from .numerics import Numerics
 
 
@@ -34,8 +34,8 @@ def lr_at(cfg: dict, k: int) -> float:
     return cfg['lr'] * warm * cos
 
 
-def loss_and_grads(num: Numerics, p: Dict[str, torch.Tensor], c: dict,
-                   tokens: torch.Tensor, labels: torch.Tensor
+def loss_and_grads(num: Numerics, forward, p: Dict[str, torch.Tensor],
+                   c: dict, tokens: torch.Tensor, labels: torch.Tensor
                    ) -> Tuple[float, List[torch.Tensor]]:
     names = list(p)
     leaves = [p[n] for n in names]
@@ -72,8 +72,8 @@ def adamw(cfg: dict, p: Dict[str, torch.Tensor], grads, m, v, k: int):
     return taken
 
 
-def train(num: Numerics, p0: Dict[str, torch.Tensor], c: dict, opt: dict,
-          batches) -> dict:
+def train(num: Numerics, forward, p0: Dict[str, torch.Tensor], c: dict,
+          opt: dict, batches) -> dict:
     """``len(batches)`` steps from the weights ``p0`` (left as they are):
     each step's loss, each leaf's norm of the first step's clipped
     gradient, and each leaf's norm of the change over all the steps."""
@@ -82,7 +82,8 @@ def train(num: Numerics, p0: Dict[str, torch.Tensor], c: dict, opt: dict,
     v = [torch.zeros_like(w) for w in p.values()]
     losses, first = [], None
     for k, b in enumerate(batches, start=1):
-        loss, grads = loss_and_grads(num, p, c, b['tokens'], b['labels'])
+        loss, grads = loss_and_grads(num, forward, p, c, b['tokens'],
+                                     b['labels'])
         taken = adamw(opt, p, grads, m, v, k)
         if first is None:
             first = {n: float(g.norm()) for n, g in zip(p, taken)}

@@ -14,7 +14,9 @@ import torch
 
 from harness import common, weights
 from reference import lm as lm_ref
+from reference import prng as ref_prng
 from reference import sd as sd_ref
+from reference.noise import Draws
 from reference.numerics import FP32, Numerics
 from reference.prng import initial_noise
 
@@ -27,7 +29,7 @@ UNET = dict(name='t', img_size=16, in_ch=4, base_ch=32, ch_mults=[1, 2],
 VAE = dict(img_size=32, in_ch=3, z_ch=4, base_ch=16, ch_mults=[1, 2],
            groups=8)
 SD = {'name': 'tiny-sd', 'unet': UNET, 'vae': VAE, 'context_tokens': 7}
-LM = dict(name='tiny-lm', num_hidden_layers=2, hidden_size=64,
+LM = dict(name='tiny-lm', family='dense', num_hidden_layers=2, hidden_size=64,
           num_attention_heads=4, num_key_value_heads=2, intermediate_size=128,
           vocab_size=97, rms_norm_eps=1e-6, rope_theta=10000.0, kv_repeat=2)
 SD_MIX = dict(driver='sd_engine', arrivals='closed', clients=3, slots=3,
@@ -35,6 +37,10 @@ SD_MIX = dict(driver='sd_engine', arrivals='closed', clients=3, slots=3,
               check_requests=16, trace_from_tick=1, trace_ticks=2)
 POISSON_MIX = dict(SD_MIX, arrivals='poisson', rate=4.0,
                    drain_s=120.0, cache_interval=2, steps=4)
+NOISE_MIX = dict(POISSON_MIX, precision='w8a8+noise', cache_interval=1,
+                 slots=2, rate=3.0, steps=3)
+MIXED_MIX = dict(POISSON_MIX, precision={'fp32': 1, 'w8a8': 1,
+                                         'w8a8+noise': 2})
 LM_MIX = dict(driver='lm_generate', arrivals='batches', batch=3,
               prompt_lengths=[5, 9, 17, 9], new_tokens=6, quant=True,
               check_sequences=16, trace_batch=3)
@@ -42,6 +48,11 @@ LM_MIX = dict(driver='lm_generate', arrivals='batches', batch=3,
 # them on the CPU (rounding moves a few int8 roundings), a fault reads
 # well over
 SD_LIMITS = {'image_rel_rms': 1e-2, 'image_max_abs': 2e-2}
+# the tiny model's attention moves its images little, so its noise moves
+# them little: sound noisy runs read 4.3e-4-9.0e-4 (largest pixel up to
+# 1.5e-3) on the CPU; the perturbation left out, drawn at the next tick's
+# keys or at slot 0's rows for every slot, 2.9e-3 (5.0e-3) and more
+NOISE_LIMITS = {'image_rel_rms': 2e-3, 'image_max_abs': 4e-3}
 LM_LIMITS = {'served_gap': 1e-2, 'kv_rel_rms.L0': 1e-4, 'kv_rel_rms.L1': 2e-2}
 # windows long enough that a CPU shared with other test workers still
 # finishes requests, batches and steps in them
@@ -109,12 +120,68 @@ def test_initial_noise_is_the_ports_bit_for_bit(seed):
                        initial_noise(seed, (1, 16, 16, 4)))
 
 
+@pytest.mark.parametrize('offset', [0, 12345])
+def test_reference_normal_is_the_ports_bit_for_bit(offset):
+    from repro_torch.core import prng
+    key = prng.fold_in(prng.PRNGKey(2 ** 31 + 7), 5)
+    assert ref_prng.fold_in(ref_prng.PRNGKey(2 ** 31 + 7), 5) == key
+    want = prng.normal(key, (6, 37), device='cpu', offset=offset)
+    assert torch.equal(ref_prng.normal(key, (6, 37), offset=offset), want)
+    # rows 1 and 4 alone, by their counters
+    idx = offset + torch.tensor([37 + i for i in range(37)]
+                                + [4 * 37 + i for i in range(37)])
+    assert torch.equal(ref_prng.normal_at(key, idx), want[[1, 4]].reshape(-1))
+
+
+def test_noisy_reference_matches_the_ports_engine():
+    """Three noisy requests through a 2-slot engine, admitted at ticks 0,
+    1 and 3, the third into slot 0 again: the reference draws each one's
+    perturbation from its own ticks and slot and reproduces its image;
+    without the perturbation, or at the next tick's keys, it does not."""
+    drv = common.driver('sd_engine')
+    mix = dict(NOISE_MIX, steps=3)
+    seed, dev = 11, torch.device('cpu')
+    engine = drv._engine(SD, mix, seed, dev)
+    reqs = [dict(id=i, seed=100 + i, precision='w8a8+noise')
+            for i in range(3)]
+    results, eng_tick = {}, []
+    for k in range(6):
+        if k < 3:
+            engine.submit(drv._request(mix, reqs[k]), now=float(k))
+        eng_tick.append(engine.metrics.ticks)
+        for res in engine.tick(now=float(k)):
+            results[res.request_id] = res
+    admitted = {e.rid: (int(e.ts), e.slot)
+                for e in engine.tracer.select(name='slot_assign')}
+    assert admitted == {0: (0, 0), 1: (1, 1), 2: (3, 0)}
+    assert sorted(results) == [0, 1, 2]
+    slot0 = {0: 0, 1: 1, 2: 2, 3: 0, 4: 1, 5: 2}
+    draws = [Draws(drv.noise_seed(seed), ticks, slot,
+                   {k: slot0[k] for k in ticks})
+             for ticks, slot in (([0, 1, 2], 0), ([1, 2, 3], 1),
+                                 ([3, 4, 5], 0))]
+    assert list(drv._draws(drv.noise_seed(seed), [0, 1, 2], admitted,
+                           eng_tick, 3).values()) == draws
+    p = weights.make(drv._spec(SD), seed, 'cpu')
+    up, vp = drv._split(p, 'unet.'), drv._split(p, 'vae.')
+    ctx = sd_ref.context_rows(seed, 2, 7, 24, 'cpu')[[0, 1, 0]]
+
+    def worst(num):
+        want = sd_ref.generate(num, up, vp, SD, [100, 101, 102], ctx, 3,
+                               7.5, True, 1, draws)
+        return max(sd_ref.image_errors(torch.from_numpy(results[i].image),
+                                       want[i])[0] for i in range(3))
+    sound = worst(FP32)
+    assert sound < NOISE_LIMITS['image_rel_rms'] / 2
+    for control in (Numerics(analog=False), Numerics(tick_shift=1)):
+        assert worst(control) > 3 * sound
+
+
 @pytest.mark.parametrize('quant', [False, True])
 def test_lm_reference_matches_the_port(quant):
     from repro_torch.launch import steps as ST
     from repro_torch.models import transformer as T
-    drv = common.driver('lm_generate')
-    arch = drv.arch_config(LM)
+    arch = common.family('dense').arch_config(LM)
     p = weights.make(lm_ref.param_spec(LM), 5, 'cpu')
     m = weights.install(T.LM(arch, device='meta'), p)
     tok = torch.randint(0, 97, (2, 11), generator=torch.Generator().manual_seed(1))
@@ -133,8 +200,8 @@ def test_lm_reference_matches_the_port(quant):
     full = torch.cat([tok, served[:, :-1]], 1)
     last = lm_ref.logits(FP32, p, LM, full, quant, last=6)
     assert torch.equal(last.argmax(-1).int(), served)
-    assert (lm_ref.served_gaps(last.reshape(-1, 97), served.reshape(-1))
-            == 0).all()
+    gaps = common.driver('lm_generate').served_gaps
+    assert (gaps(last.reshape(-1, 97), served.reshape(-1)) == 0).all()
 
 
 # --- runs through the harness, sound and broken ----------------------------
@@ -153,6 +220,29 @@ def test_sd_run_is_correct(mix):
     assert out.checks[0].value < SD_LIMITS['image_rel_rms'] / 10
     assert line['metrics']['setup_s']['value'] > 0
     assert list(line)[-1] == 'checks'
+
+
+@pytest.mark.parametrize('mix', [NOISE_MIX, MIXED_MIX], ids=['noise',
+                                                          'mixed'])
+def test_sd_noisy_and_mixed_runs_are_correct(mix):
+    """A noisy mix, and one whose requests each draw fp32, w8a8 or
+    w8a8+noise: the comparison takes each request at its precision."""
+    line, out = _run(_cell(SD, mix, NOISE_LIMITS))
+    assert line['correct'], out.checks
+
+
+def test_noise_controls_read_above_the_sound_run():
+    """The noisy cell's controls in the program's place (the perturbation
+    left out; drawn at the next tick's keys) read well above the program,
+    here as on the card."""
+    out = common.driver('sd_engine').run(common.Run(
+        _cell(SD, NOISE_MIX, NOISE_LIMITS), 7, SD_SECONDS, False, 'cpu',
+        {'noise_off': Numerics(analog=False),
+         'tick_shift': Numerics(tick_shift=1)}))
+    for name in ('noise_off', 'tick_shift'):
+        for n, limit in NOISE_LIMITS.items():
+            assert out.readings[f'control_{name}_{n}'] > limit
+            assert out.readings[f'control_{name}_{n}'] > 3 * out.readings[n]
 
 
 def test_poisson_run_traces_the_window_s_last_seconds():
@@ -210,11 +300,45 @@ def _altered_answer(monkeypatch):
     monkeypatch.setattr(P, 'decode', decode)
 
 
+def _noise_dropped(monkeypatch):
+    """A noisy projection on the plain W8A8 rule."""
+    from repro_torch.core.photonic import noise
+    from repro_torch.kernels import ops
+
+    def matmul(key, x, w, *a, **k):
+        return ops.w8a8_matmul(x, w)
+    monkeypatch.setattr(noise, 'noisy_w8a8_matmul', matmul)
+
+
+def _tick_key_off_by_one(monkeypatch):
+    from repro_torch.serving.engine import ContinuousBatchingEngine as E
+    orig = E._tick_key
+    monkeypatch.setattr(E, '_tick_key',
+                        lambda self, pol, tick: orig(self, pol, tick + 1))
+
+
+def _slot_offset_dropped(monkeypatch):
+    """Every slot draws the perturbation of slot 0's rows."""
+    from repro_torch.core.photonic import noise
+    orig = noise.noisy_w8a8_matmul
+
+    def matmul(key, x, w, model=noise.NoiseModel(), n_channels=36,
+               first_sample=0):
+        return torch.cat([orig(key, x[i:i + 1], w, model, n_channels)
+                          for i in range(x.shape[0])])
+    monkeypatch.setattr(noise, 'noisy_w8a8_matmul', matmul)
+
+
+NOISE_FAULTS = (_noise_dropped, _tick_key_off_by_one, _slot_offset_dropped)
+
+
 @pytest.mark.parametrize('fault', [_unchanged_state, _half_batch,
-                                   _altered_answer])
+                                   _altered_answer, *NOISE_FAULTS])
 def test_sd_faults_are_not_correct(fault, monkeypatch):
     fault(monkeypatch)
-    line, _ = _run(_cell(SD, SD_MIX, SD_LIMITS))
+    cell = _cell(SD, NOISE_MIX, NOISE_LIMITS) if fault in NOISE_FAULTS \
+        else _cell(SD, SD_MIX, SD_LIMITS)
+    line, _ = _run(cell)
     assert not line['correct']
 
 
@@ -280,13 +404,51 @@ def test_controls_read_above_the_sound_run():
 
 # --- a cell added as files only ---------------------------------------------
 
+#: a model family that exists only as a new file: the dense one, its
+#: cache compared under names of its own (the planted difference that
+#: shows it was the one run)
+NEW_FAMILY = '''
+from harness import common
+
+_dense = common.family('dense')
+arch_config, param_spec, forward = (_dense.arch_config, _dense.param_spec,
+                                    _dense.forward)
+prefill_work, decode_work, train_work = (_dense.prefill_work,
+                                         _dense.decode_work,
+                                         _dense.train_work)
+NAMES = {'k': 'key', 'v': 'value'}
+
+
+def logits(num, p, c, tokens, quant, last=None, kv=None):
+    mine = [] if kv is not None else None
+    out = _dense.logits(num, p, c, tokens, quant, last, mine)
+    if kv is not None:
+        kv.extend({NAMES[n]: t for n, t in d.items()} for d in mine)
+    return out
+
+
+def cache_rows(cache, arch, j, T, layers):
+    return {i: {NAMES[n]: t for n, t in d.items()}
+            for i, d in _dense.cache_rows(cache, arch, j, T, layers).items()}
+'''
+
+
 def test_new_cell_config_mix_and_metric_are_found_by_name(tmp_path,
                                                           monkeypatch):
-    for d in ('harness', 'metrics', 'reference', 'roofline'):
+    for d in ('metrics', 'reference', 'roofline'):
         (tmp_path / d).symlink_to(HERE / d)
-    for d in ('workloads', 'configs', 'traffic'):
+    for d in ('workloads', 'configs', 'traffic', 'harness',
+              'harness/families'):
         (tmp_path / d).mkdir()
-    (tmp_path / 'configs' / 'tiny-lm.json').write_text(json.dumps(LM))
+    for f in (HERE / 'harness').iterdir():
+        if f.name != 'families':
+            (tmp_path / 'harness' / f.name).symlink_to(f)
+    (tmp_path / 'harness' / 'families' / 'dense.py').symlink_to(
+        HERE / 'harness' / 'families' / 'dense.py')
+    (tmp_path / 'harness' / 'families' / 'tiny-family.py').write_text(
+        NEW_FAMILY)
+    (tmp_path / 'configs' / 'tiny-lm.json').write_text(json.dumps(
+        dict(LM, family='tiny-family')))
     (tmp_path / 'traffic' / 'tiny-batches.json').write_text(json.dumps(LM_MIX))
     (tmp_path / 'workloads' / 'tiny-generate.json').write_text(json.dumps({
         'config': 'tiny-lm', 'traffic': 'tiny-batches', 'chips': 1,
@@ -303,8 +465,10 @@ def test_new_cell_config_mix_and_metric_are_found_by_name(tmp_path,
     metrics.rename(tmp_path / 'metrics')
     monkeypatch.setattr(common, 'HERE', tmp_path)
     cell = common.Cell.load('tiny-generate')
-    line, _ = RUN.result(cell, 3, LM_SECONDS, False, 'cpu')
+    line, out = RUN.result(cell, 3, LM_SECONDS, False, 'cpu')
     assert line['correct'] and line['metrics']['lm_tokens_per_s']['value'] > 0
+    assert {'kv_rel_rms.L0.key', 'kv_rel_rms.L0.value'} <= set(out.readings)
+    assert 'kv_rel_rms.L0.k' not in out.readings
     line, _ = RUN.result(cell, 3, LM_SECONDS, True, 'cpu')
     assert line['metrics']['slice_ms.new']['value'] > 0
     assert 'lm_mfu.generate' in line['metrics']

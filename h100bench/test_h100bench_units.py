@@ -62,6 +62,26 @@ def test_seeds_change_contents_not_amounts():
         assert not torch.equal(p0, p1)
 
 
+@pytest.mark.parametrize('seed', [0, 7, 2 ** 31 + 12345])
+def test_precision_map_is_drawn_per_request_from_the_seed(seed):
+    from harness import precision
+    mix = {'precision': {'w8a8+noise': 1, 'fp32': 1, 'w8a8': 2}}
+    drawn = [traffic.precision(mix, seed, i) for i in range(400)]
+    assert drawn == [traffic.precision(mix, seed, i) for i in range(400)]
+    assert drawn != [traffic.precision(mix, seed + 1, i) for i in range(400)]
+    assert drawn.count('w8a8') == pytest.approx(200, abs=40)
+    assert drawn.count('fp32') == pytest.approx(100, abs=35)
+    assert traffic.precisions(mix) == ['fp32', 'w8a8', 'w8a8+noise']
+    one = {'precision': 'w8a8+noise'}
+    assert traffic.precisions(one) == ['w8a8+noise']
+    assert {traffic.precision(one, seed, i) for i in range(5)} == \
+        {'w8a8+noise'}
+    assert [precision.of(n).int8_gemm for n in traffic.precisions(mix)] == \
+        [False, True, False]
+    with pytest.raises(ValueError):
+        precision.of('int4')
+
+
 # --- the metrics' arithmetic ----------------------------------------------
 
 def test_fractional_image_credit():
